@@ -29,7 +29,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
 
 import numpy as np
 
@@ -56,12 +55,6 @@ def main():
                     help="total bootstraps to sample (>= 10^4 for the "
                          "failure check)")
     ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--rounded", action="store_true",
-                    help="measure the fused kernel's rounded-decomposition "
-                         "mode (adds decomposition noise)")
-    ap.add_argument("--approx", action="store_true",
-                    help="measure the fused kernel's plane-truncated mode "
-                         "(adds low-order truncation noise)")
     ap.add_argument("--pack-units", type=int, default=0,
                     help="also BOOTSTRAP packs synthesized at ~this many "
                          "fresh-PBS variance units (4x+y with x a sum of "
@@ -81,17 +74,15 @@ def main():
     from fhestring_tpu.crypto import keys as dkeys
     from fhestring_tpu.crypto import pbs as dpbs
     from fhestring_tpu.numpy_ref import core as ref
+    from fhestring_tpu.compat import device_info
 
     params = {"prod": P.PARAM_PROD, "turbo": P.PARAM_TURBO,
               "noisy": P.PARAM_TEST_NOISY,
               "stat": getattr(P, "PARAM_TEST_STAT", P.PARAM_TEST_NOISY),
               "stat32": P.PARAM_TEST32_STAT}[args.params]
-    on_tpu = jax.default_backend() != "cpu"
-    print(f"# params={params.name} device={jax.devices()[0]}",
-          file=sys.stderr)
-    if (args.rounded or args.approx) and not on_tpu:
-        print("# WARNING: --rounded/--approx only affect the fused kernel "
-              "(TPU); the CPU einsum path is exact", file=sys.stderr)
+    path = dpbs.bootstrap_path(params)
+    print(f"# params={params.name} device={jax.devices()[0]} "
+          f"path={path.name}", file=sys.stderr)
 
     if args.params in ("prod", "turbo"):
         import bench
@@ -99,7 +90,7 @@ def main():
     else:
         rng0 = np.random.default_rng(0)
         sk, srv = ref.keygen(params, rng0)
-    dev = dkeys.pack_server_keys(srv, with_ntt2=on_tpu)
+    dev = dkeys.pack_server_keys(srv, with_ntt=path.use_ntt)
 
     table = list(range(4)) * 4  # identity-on-message LUT
     bank = dkeys.pack_luts([table], params)
@@ -112,9 +103,7 @@ def main():
         msgs = rng.integers(0, 4, size=B)
         cts = np.stack([ref.shortint_encrypt(sk, int(m), rng) for m in msgs])
         out = dpbs.pbs_batch(torus.from_numpy(cts), np.zeros(B, np.int32),
-                             bank, dev, use_fused=on_tpu,
-                             use_pallas=False, rounded=args.rounded,
-                             approx=args.approx)
+                             bank, dev, use_ntt=path.use_ntt)
         host = torus.to_numpy(out)
         exp = np.array([table[m] for m in msgs])
         errs = phase_errors(sk, host, exp, params)
@@ -153,8 +142,7 @@ def main():
             boot = torus.to_numpy(dpbs.pbs_batch(
                 torus.from_numpy(allc),
                 np.zeros(len(allc), np.int32), bank, dev,
-                use_fused=on_tpu, use_pallas=False,
-                rounded=args.rounded, approx=args.approx))
+                use_ntt=path.use_ntt))
             x = boot[:B]
             y = boot[B:2 * B]
             if k > 1:
@@ -166,8 +154,7 @@ def main():
             out2 = torus.to_numpy(dpbs.pbs_batch(
                 torus.from_numpy(packed), np.zeros(B, np.int32),
                 dkeys.pack_luts([list(range(16))], params), dev,
-                use_fused=on_tpu, use_pallas=False,
-                rounded=args.rounded, approx=args.approx))
+                use_ntt=path.use_ntt))
             dec2 = np.array([ref.shortint_decrypt(sk, out2[i])
                              for i in range(B)])
             pack_hi_failures += int((dec2 != pexp % 16).sum())
@@ -185,8 +172,8 @@ def main():
 
     print(json.dumps({
         "params": params.name,
-        "mode": ("rounded+" if args.rounded else "")
-                + ("approx" if args.approx else "exact"),
+        "path": path.name,
+        **device_info(),
         "samples": total,
         "decode_failures": failures,
         "sigma_fresh_rel": math.sqrt(var_fresh),

@@ -2,12 +2,11 @@
 """Multi-query serving benchmark: N concurrent encrypted queries per step.
 
 The headline bench (bench.py) measures raw batched-PBS throughput at
-B = 1024, but a SINGLE query's per-op PBS batches are small (8-194 wide,
-benchmarks/methods_turbo_r5b.jsonl) so a one-query-at-a-time server idles the
-chip. The TPU-native serving answer is query batching: Q concurrent
-queries' PBS work flattens into one wide batch (query x window x pattern x
-block), so per-op batch width scales with Q and the chip approaches its
-raw kernel throughput.
+B = 2048, but a SINGLE query's per-op PBS batches are small (8-194 wide at
+the methods.py shapes) so a one-query-at-a-time server idles the device.
+Query batching answers that: Q concurrent queries' PBS work flattens into
+one wide batch (query x window x pattern x block), so per-op batch width
+scales with Q and the device approaches its raw kernel throughput.
 
 This benchmark runs a batched homomorphic `contains` ("hello world" x
 "ello", the reference driver's flagship op, reference
@@ -26,7 +25,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
 
 import numpy as np
 

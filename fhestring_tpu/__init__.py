@@ -1,10 +1,10 @@
-"""fhestring_tpu: a TPU-native TFHE encrypted-string framework.
+"""fhestring_tpu: a TFHE encrypted-string framework in JAX.
 
 A from-scratch rebuild of the capabilities of MakisChristou/fhestring
-(Rust + tfhe-rs) as an idiomatic JAX/XLA/Pallas stack: characters are
-encrypted per-8-bit-char as 4x 2-bit shortint radix blocks; every string
-method lowers to batched programmable bootstraps whose negacyclic polynomial
-products run as exact int8-limb matmuls on the TPU MXU.
+(Rust + tfhe-rs) as a JAX/XLA stack: characters are encrypted per-8-bit-char
+as 4x 2-bit shortint radix blocks; every string method lowers to batched
+programmable bootstraps whose negacyclic polynomial products run as exact
+integer contractions on the accelerator (crypto/pbs.py).
 """
 
 from .params import (  # noqa: F401

@@ -266,7 +266,7 @@ PARAM_SETS = {
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fhestring",
-        description="A FHE string implementation on TPU (JAX/Pallas)")
+        description="A FHE string implementation in JAX")
     ap.add_argument("-s", "--string", required=True,
                     help="The string to do the processing on")
     ap.add_argument("-p", "--pattern", required=True,

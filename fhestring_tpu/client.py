@@ -7,7 +7,7 @@ rejects non-ASCII and embedded NULs), ``encrypt_no_padding``,
 ``decrypt_char``, ``get_server_key``, ``get_public_parameters``.
 
 All secret-key operations stay on the host CPU; only evaluation keys and
-ciphertexts ever reach the TPU.
+ciphertexts ever reach the accelerator.
 """
 
 from __future__ import annotations
@@ -56,29 +56,22 @@ class ClientKey:
                     seed: int | None = 0) -> "ClientKey":
         return cls(params, seed)
 
-    def get_server_key(self, with_ntt2: bool | None = None,
-                       cache_path: str | None = None):
-        """Pack the evaluation keys for the device.
-
-        with_ntt2: also pack the NTT-domain bootstrap key that enables the
-        fused blind-rotation kernel (the fastest measured TPU path). Default:
-        auto — on for TPU backends, off for CPU (where the fused kernel only
-        runs interpreted and the packing cost buys nothing).
+    def get_server_key(self, cache_path: str | None = None):
+        """Pack the evaluation keys for the device, in the layout the
+        platform's bootstrap path reads (crypto.pbs.bootstrap_path).
 
         cache_path: optional packed-key checkpoint (.npz). If it exists, the
         device-format keys are LOADED instead of re-packed — NTT-domain
-        packing is minutes of host transforms at production parameters, and
+        packing is host transforms over the whole bootstrap key, and
         without a cache every server process start pays it again. On a miss
         the packed keys are saved there after packing.
         """
         import os
 
-        import jax
-
+        from .crypto.pbs import bootstrap_path
         from .server import ServerKey
 
-        if with_ntt2 is None:
-            with_ntt2 = jax.default_backend() != "cpu"
+        with_ntt = bootstrap_path(self.params).use_ntt
         if cache_path and os.path.exists(cache_path):
             from . import serialize
 
@@ -88,16 +81,12 @@ class ClientKey:
                     f"packed-key cache {cache_path!r} was created for "
                     f"parameter set {srv.params.name!r}, not "
                     f"{self.params.name!r}")
-            dk = srv.backend.sc.keys
-            ntt_plane = (dk.bsk_ntt32 if self.params.torus_bits == 32
-                         else dk.bsk_ntt2)
-            if not with_ntt2 or ntt_plane is not None:
+            if not with_ntt or srv.backend.sc.keys.bsk_ntt is not None:
                 return srv
             # Cache was packed without the NTT-domain key (e.g. on CPU);
-            # loading it as-is would silently drop the fused kernel path.
-            # Repack with the plane and overwrite the checkpoint.
+            # repack with it and overwrite the checkpoint.
         srv = ServerKey(
-            pack_server_keys(self._server_raw, with_ntt2=with_ntt2),
+            pack_server_keys(self._server_raw, with_ntt=with_ntt),
             self.params)
         if cache_path:
             from . import serialize

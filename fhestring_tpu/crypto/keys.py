@@ -1,7 +1,8 @@
-"""Device-format key material for the TPU PBS pipeline.
+"""Device-format key material for the PBS pipeline.
 
 Host keygen lives in ``numpy_ref`` (client side, CPU).  This module packs the
-server-side evaluation keys into the MXU-friendly layouts:
+server-side evaluation keys into the int8-limb layouts the device path
+contracts:
 
 - Bootstrap key: negacyclically-doubled polynomials split into 8 balanced
   signed int8 limb planes, ``[n, (k+1)*ell, k+1, 8, 2N]`` — the RHS generator
@@ -9,6 +10,8 @@ server-side evaluation keys into the MXU-friendly layouts:
 - Keyswitch key: balanced int8 limb planes flattened for a single
   ``[B, kN*ks_level] @ [kN*ks_level, (n+1)*8]`` int8 matmul.
 - LUT bank: doubled test polynomials as U64 ``[num_luts, 2N]``.
+- Optionally the NTT-domain bootstrap key for the CRT-NTT external product
+  (``crypto.pbs.bootstrap_path`` says whether a platform needs it).
 
 Replaces tfhe-rs's ServerKey/bootstrapping-key memory layout (reference
 dependency; SURVEY.md section 2.3).
@@ -64,18 +67,10 @@ class DeviceServerKeys:
     # int16 [n, 2(prime), (k+1)*ell, k+1, 8, 2N] or None: NTT-domain key
     # limb planes (centered residues) for the CRT-NTT external product.
     bsk_ntt: jnp.ndarray | None = None
-    # int16 [n, 3(prime), (k+1)*ell, k+1, 8, n2, n1] or None: negacyclic
-    # twisted-hat key (256^lb folded) for the v2 Pallas kernel (ntt_ext.py).
-    bsk_ntt2: jnp.ndarray | None = None
-    # int16 [n, 2(prime), (k+1)*ell, k+1, 4, n2, n1] or None: plain twisted
-    # hats of the 4 nonzero byte-limb planes of a 32-bit-torus key, for the
-    # fused 32-bit kernel (kernels/blind_rotate_fused32.py).
-    bsk_ntt32: jnp.ndarray | None = None
 
 
 def _dsk_flatten(k: DeviceServerKeys):
-    return (k.bsk_limbs, k.ksk_limbs, k.bsk_ntt, k.bsk_ntt2,
-            k.bsk_ntt32), k.params
+    return (k.bsk_limbs, k.ksk_limbs, k.bsk_ntt), k.params
 
 
 def _dsk_unflatten(params, children):
@@ -101,54 +96,8 @@ def pack_bsk_ntt(bsk_limbs: np.ndarray) -> np.ndarray:
     return np.stack(hats, axis=1)
 
 
-def pack_bsk_ntt2(bsk_limbs: np.ndarray) -> np.ndarray:
-    """Negacyclic NTT-domain key for the v2 kernel (kernels/ntt_ext.py).
-
-    bsk_limbs int8 [n, R, k+1, 8, 2N] (doubled planes; the first half IS
-    the raw polys' limb planes) -> int16 [n, 3, R, k+1, 8, n2, n1]
-    centered twisted hats with 256^lb folded in."""
-    from . import ntt2
-
-    bsk_limbs = np.asarray(bsk_limbs)
-    n = bsk_limbs.shape[-1] // 2
-    raw = bsk_limbs[..., :n]
-    hats = ntt2.key_hats(raw, n)                 # [3, n_steps, R, k+1, 8, N]
-    hats = np.moveaxis(hats, 0, 1)               # [n_steps, 3, ...]
-    n1 = min(128, n)
-    return np.ascontiguousarray(
-        hats.reshape(hats.shape[:-1] + (n // n1, n1)))
-
-
-def pack_bsk_ntt32(bsk: np.ndarray) -> np.ndarray:
-    """32-bit-torus NTT-domain key for the fused 32-bit kernel.
-
-    bsk: u64 [n, R, k+1, N] raw key polys, subgroup-valued (low 32 bits
-    zero).  Returns int16 [n, 2(prime), R, k+1, 4, n2, n1]: plain twisted
-    hats of the 4 balanced byte-limb planes of the u32 payload."""
-    from . import ntt2
-    from .kernels.blind_rotate_fused32 import PRIMES2
-
-    bsk = np.asarray(bsk, U64NP)
-    assert (bsk << U64NP(32) == 0).all(), "key not in the 32-bit subgroup"
-    payload = (bsk >> U64NP(32)).astype(np.uint32)
-    # balanced byte limbs of the u32 payload (final carry wraps mod 2^32)
-    state = payload.astype(np.int64)
-    limbs = np.zeros(payload.shape + (4,), np.int8)
-    for i in range(4):
-        d = ((state + 128) & 255) - 128
-        limbs[..., i] = d.astype(np.int8)
-        state = (state - d) >> 8
-    limbs = np.moveaxis(limbs, -1, -2)           # [n, R, k+1, 4, N]
-    n_poly = bsk.shape[-1]
-    hats = ntt2.key_hats2(limbs, n_poly, PRIMES2)  # [2, n, R, k+1, 4, N]
-    hats = np.moveaxis(hats, 0, 1)               # [n, 2, R, k+1, 4, N]
-    n1 = min(128, n_poly)
-    return np.ascontiguousarray(
-        hats.reshape(hats.shape[:-1] + (n_poly // n1, n1)))
-
-
-def pack_server_keys(srv: ref.ServerKeys, with_ntt: bool = False,
-                     with_ntt2: bool = False) -> DeviceServerKeys:
+def pack_server_keys(srv: ref.ServerKeys,
+                     with_ntt: bool = False) -> DeviceServerKeys:
     p = srv.params
     # BSK: [n, R, k+1, N] u64 -> doubled [.., 2N] -> limbs [.., 2N, 8] -> move
     # the limb axis before the coefficient axis.
@@ -168,19 +117,11 @@ def pack_server_keys(srv: ref.ServerKeys, with_ntt: bool = False,
     ksk_limbs = ksk.reshape(K, (p.lwe_dimension + 1) * nplanes)
 
     bsk_ntt = pack_bsk_ntt(bsk_limbs) if with_ntt else None
-    bsk_ntt2 = bsk_ntt32 = None
-    if with_ntt2:
-        if p.torus_bits == 32:
-            bsk_ntt32 = pack_bsk_ntt32(srv.bsk)
-        else:
-            bsk_ntt2 = pack_bsk_ntt2(bsk_limbs)
     return DeviceServerKeys(
         params=p,
         bsk_limbs=jnp.asarray(bsk_limbs),
         ksk_limbs=jnp.asarray(ksk_limbs),
         bsk_ntt=None if bsk_ntt is None else jnp.asarray(bsk_ntt),
-        bsk_ntt2=None if bsk_ntt2 is None else jnp.asarray(bsk_ntt2),
-        bsk_ntt32=None if bsk_ntt32 is None else jnp.asarray(bsk_ntt32),
     )
 
 

@@ -1,9 +1,8 @@
-"""Exact CRT-NTT polynomial products — the speed-of-light path.
+"""Exact CRT-NTT polynomial products for the external product.
 
-Replaces the O(N^2) negacyclic int8-limb matmul convolution inside the
-external product with an O(N log N)-class transform evaluated as MXU
-matmuls (BASELINE.json north star: "the NTT over the 2N-th-root negacyclic
-ring is the speed-of-light kernel").
+Replaces the O(N^2) negacyclic int8-limb Hankel convolution inside the
+external product with an O(N log N)-class transform evaluated as dense
+matrix products (crypto/pbs._ext_planes_ntt).
 
 Formulation. The matmul path contracts digit limb planes against Hankel
 strips of the DOUBLED key limb planes: out[t] = sum_c d[c] *
@@ -31,7 +30,7 @@ constant-matrix matmuls and one diagonal twiddle:
     ahat[k1,k2] = sum_j2 Z[k1, j2] W2[k2, j2]     W2 = w^{N1 j2 k2}
 
 and the inverse is the mirror image with w^-1 and a folded 1/L. W1/W2/T
-are precomputed constants, split into balanced int8 limbs for the MXU;
+are precomputed constants, split into balanced int8 limbs for the matmuls;
 operands are re-centered mod p between stages.
 
 This module is the NumPy plan + reference implementation; the batched
@@ -201,7 +200,7 @@ def key_hats_numpy(p2: np.ndarray) -> list[np.ndarray]:
 
 
 def ext_planes_ntt_numpy(drev: np.ndarray, p4: np.ndarray, n: int) -> np.ndarray:
-    """Same contract as kernels.ext_product.ext_product_planes_reference:
+    """Same contract as numpy_ref.ext_product_planes_reference:
     drev int8 [La, B, R*N] (c reversed per i block), p4 int8 [R, kp1, 8, 4N]
     -> int32 planes [B, kp1, 8, N]. Exact (bit-identical)."""
     num_la, B, kn = drev.shape

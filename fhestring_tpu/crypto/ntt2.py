@@ -1,10 +1,10 @@
-"""Negacyclic twist-folded CRT-NTT for the external product (v2 path).
+"""Negacyclic twist-folded CRT-NTT for the external product.
 
-This is the O(N log N)-class replacement for the O(N^2) int8-limb matmul
-convolution in the blind rotation (crypto/kernels/ext_product.py), designed
-so every transform stage is a dense MXU matmul inside one Pallas kernel
-(crypto/kernels/ntt_ext.py).  It improves on crypto/ntt.py (the cyclic-2N
-prototype) in three measured ways:
+This is an O(N log N)-class replacement for the O(N^2) int8-limb Hankel
+convolution in the blind rotation (crypto/pbs._ext_planes_einsum), shaped so
+every transform stage is a dense matrix product; parallel.py shards its
+stages over a device mesh.  It improves on crypto/ntt.py (the cyclic-2N
+transform) in three ways:
 
 1. **Negacyclic length-N transforms** (not zero-padded cyclic 2N): the
    negacyclic twist a_j -> a_j * psi^j (psi a primitive 2N-th root mod p)
@@ -31,14 +31,13 @@ prototype) in three measured ways:
    the blocks) and stage 2 a dense 128-contraction; the inverse mirrors it.
    Data moves [.., j2, j1] -> T -> blk -> T -> dense -> [.., k2, k1].
 
-The final (lo, hi) u64 output is bit-identical to the matmul path
-(kernels/ext_product.py) and the NumPy oracle: both equal the exact integer
-negacyclic convolution digits (x) key reduced mod 2^64.  Replaces the
+The final (lo, hi) u64 output is bit-identical to the Hankel path
+(numpy_ref.ext_product_planes_reference) and the NumPy oracle: both equal
+the exact integer negacyclic convolution digits (x) key reduced mod 2^64.  Replaces the
 concrete-fft negacyclic product inside tfhe-rs's PBS (reference dependency,
 SURVEY.md section 2.3) with exact integer arithmetic - no transform noise.
 
-This module holds the NumPy plans + bit-exact reference implementation;
-the Pallas kernel consumes the packed constants from ``pack_plan_consts``.
+This module holds the NumPy plans + bit-exact reference implementation.
 """
 
 from __future__ import annotations
@@ -205,9 +204,8 @@ def crt3(v1: np.ndarray, v2: np.ndarray, v3: np.ndarray) -> np.ndarray:
     x2 = np.mod((np.mod(v2, p2) - x1) * inv_p1_p2, p2)
     x3 = np.mod((np.mod(v3, p3) - x1 - p1 * x2) * inv_p12_p3, p3)
     v = x1 + p1 * x2 + (p1 * p2) * x3           # in [0, M3)
-    # Center with the same convention as kernels/ntt_ext.crt3_u64 (subtract
-    # when v >= (M3+1)//2, i.e. v > M3//2 for odd M3) so both return values
-    # in (-M3/2, M3/2] identically at the boundary |v| = (M3-1)/2.
+    # Centered into (-M3/2, M3/2]: subtract when v >= (M3+1)//2, i.e.
+    # v > M3//2 for odd M3.
     return np.where(v > M3 // 2, v - M3, v)
 
 
@@ -229,20 +227,6 @@ def key_hats(key_limbs: np.ndarray, n: int) -> np.ndarray:
                          dtype=np.int64)
         h = _center(h * scale[..., :, None], p)
         hats.append(h)
-    return np.stack(hats).astype(np.int16)
-
-
-def key_hats2(key_limbs: np.ndarray, n: int, primes) -> np.ndarray:
-    """Plain (unscaled) forward hats of key byte-limb planes per prime.
-
-    key_limbs: int8 [..., LB, N] -> centered int16 [P, ..., LB, N].
-    Unlike key_hats, NO 256^lb weight is folded in: the 32-bit fused kernel
-    (kernels/blind_rotate_fused32.py) keeps shift planes separate through
-    the inverse transform and recombines sum_s W_s << 8s in uint32."""
-    hats = []
-    for p in primes:
-        plan = make_neg_plan(p, n)
-        hats.append(neg_fwd(key_limbs.astype(np.int64), plan))
     return np.stack(hats).astype(np.int16)
 
 

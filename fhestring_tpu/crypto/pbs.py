@@ -1,4 +1,4 @@
-"""Batched programmable bootstrap: the TPU compute path.
+"""Batched programmable bootstrap: the device compute path.
 
 Pipeline (KS -> PBS order, mirroring tfhe-rs ``*_KS_PBS`` presets used by the
 reference, src/main.rs:3):
@@ -10,31 +10,69 @@ reference, src/main.rs:3):
 
 All torus arithmetic is exact u64-on-2xuint32 (``torus.py``); every
 polynomial product in the blind rotation is an exact integer negacyclic
-convolution evaluated as int8-limb matmuls with int32 accumulation — these
-contractions are what the MXU executes.  There is no FFT and therefore no
-transform noise (unlike tfhe-rs's f64 FFT; see SURVEY.md section 6).
+convolution, evaluated either as int8-limb Hankel contractions with int32
+accumulation or as an exact two-prime CRT-NTT.  There is no FFT and
+therefore no transform noise (unlike tfhe-rs's f64 FFT; see SURVEY.md
+section 6).  ``bootstrap_path`` picks one of the two per platform.
 
 The batch axis B (string positions x blocks x parallel ops) is the
-MXU-saturation and multi-chip sharding axis.
+parallelism axis, and the one multi-device sharding splits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import os
-
 from .. import torus
 from ..params import CryptoParams
 from ..torus import U64
 from .keys import DeviceServerKeys
 
-# Opt-in fully-fused blind-rotation prologue (see blind_rotate.step_pallas).
-FUSED_PROLOGUE = os.environ.get("FHESTRING_FUSED_PROLOGUE", "0") == "1"
+# ---------------------------------------------------------------------------
+# Platform choice
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BootstrapPath:
+    """How pbs_batch runs on one platform.
+
+    use_ntt picks the external product, CRT-NTT (True) or Hankel einsum
+    (False), and with it the key layout: the CRT-NTT path reads the
+    NTT-domain key that ``pack_server_keys(with_ntt=True)`` adds.
+    """
+
+    use_ntt: bool
+
+    @property
+    def name(self) -> str:
+        return "ntt" if self.use_ntt else "einsum"
+
+
+# The faster exact path on the GPU for each torus width (bits).  bench.py on
+# one H100 80GB HBM3 (700 W), warm, full batch: turbo (32-bit, B=2048)
+# einsum 477.5 vs CRT-NTT 182.0 PBS/s; 64-bit (B=1024) einsum 691.1 vs
+# CRT-NTT 222.7 PBS/s.
+_GPU_USE_NTT = {32: False, 64: False}
+
+
+def bootstrap_path(params: CryptoParams,
+                   platform: str | None = None) -> BootstrapPath:
+    """The bootstrap path and key layout for ``params`` on ``platform``
+    (default: the platform of ``jax.devices()[0]``).  Raises on a platform
+    that has no path."""
+    if platform is None:
+        platform = jax.devices()[0].platform
+    if platform == "cpu":
+        return BootstrapPath(use_ntt=False)
+    if platform == "gpu":
+        return BootstrapPath(use_ntt=_GPU_USE_NTT[params.torus_bits])
+    raise RuntimeError(f"no bootstrap path for platform {platform!r} "
+                       "(supported: cpu, gpu)")
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +224,11 @@ def _ntt_consts(p: int, length: int):
 
 
 def _eint(subs: str, a8: jnp.ndarray, b8: jnp.ndarray) -> jnp.ndarray:
-    """Exact int8 x int8 contraction via bf16 MXU matmul.
+    """Exact int8 x int8 contraction as a bf16 x bf16 -> f32 matmul.
 
     int8 values are exact in bf16; products <= 2^14 accumulated over K <=
-    128 stay <= 2^21 < 2^24, exact in the MXU's f32 accumulator. Plain
-    int8 einsums lower to VPU int32 loops on TPU (measured 12x slower)."""
+    128 stay <= 2^21 < 2^24, so the f32 accumulator is exact in any
+    summation order.  The operands are bf16, so no TF32 rounding applies."""
     out = jnp.einsum(subs, a8.astype(jnp.bfloat16), b8.astype(jnp.bfloat16),
                      preferred_element_type=jnp.float32)
     return out.astype(jnp.int32)
@@ -303,8 +341,8 @@ def _ext_planes_ntt(dl: jnp.ndarray, khat_j: jnp.ndarray,
                 if lb < 0 or lb >= 8:
                     continue
                 # sum over input rows i: [B, R, L] * [R, kp1, L] ->
-                # [B, kp1, L]; explicit elementwise (a tiny-K einsum lowers
-                # to pathological batched dots on TPU)
+                # [B, kp1, L], elementwise with a fold per row so the int32
+                # sum stays exact
                 dh = dhat[la]                                # [B, R, L]
                 prod = sum(
                     _fold1(dh[:, i, None, :] * kh[i, :, lb], p)
@@ -355,9 +393,9 @@ def _negacyclic_rotate(acc: U64, amounts: jnp.ndarray, n_poly: int) -> U64:
 
 
 def _negacyclic_rotate_shear(acc: U64, amounts: jnp.ndarray, n_poly: int) -> U64:
-    """Gather-free per-item rotation: 12-stage conditional negacyclic rolls
-    (static roll + select per bit of the amount). Preferred on TPU, where
-    row-varying gathers lower poorly."""
+    """Gather-free per-item rotation: log2(2N) conditional negacyclic rolls
+    (static roll + select per bit of the amount). Bit-identical to
+    _negacyclic_rotate."""
     bits = (2 * n_poly).bit_length() - 1  # log2(2N)
 
     def static_negroll(x: U64, s: int) -> U64:
@@ -397,7 +435,7 @@ def _digit_limbs(diff: U64, p: CryptoParams) -> jnp.ndarray:
 
 def _ext_planes_einsum(dl: jnp.ndarray, bsk_j: jnp.ndarray,
                        p: CryptoParams) -> jnp.ndarray:
-    """Gather+einsum path (CPU/test): planes int32 [B, kp1, 8, N].
+    """Hankel einsum path: planes int32 [B, kp1, 8, N].
     kp1 is taken from bsk_j (may be a key-sharded slice of k+1)."""
     N = p.polynomial_size
     kp1 = bsk_j.shape[1]
@@ -423,164 +461,32 @@ def _ext_planes_einsum(dl: jnp.ndarray, bsk_j: jnp.ndarray,
     return planes
 
 
-def _ext_u64_pallas(dl: jnp.ndarray, bsk_j: jnp.ndarray,
-                    p: CryptoParams) -> U64:
-    """MXU kernel path: master Hankel bands in VMEM, u64 recombination
-    in-kernel (kernels/ext_product.py)."""
-    from .kernels.ext_product import ext_product_u64
-
-    assert p.pbs_level == 1, "pallas path currently assumes ell=1"
-    N = p.polynomial_size
-    B = dl.shape[0]
-    # dl [B, R, N, La] -> drev [La, B, R*N] with c reversed within each r.
-    drev = jnp.flip(dl, axis=2)
-    drev = jnp.transpose(drev, (3, 0, 1, 2)).reshape(dl.shape[-1], B, -1)
-    p4 = jnp.concatenate([bsk_j, bsk_j], axis=-1)  # [R, k+1, 8, 4N]
-    b_tile = next((d for d in (128, 64, 32, 16, 8) if B % d == 0), B)
-    # On CPU the Mosaic kernel can't run natively; interpret it (tests).
-    interpret = jax.default_backend() == "cpu"
-    lo, hi = ext_product_u64(drev, p4, n_poly=N, b_tile=b_tile,
-                             interpret=interpret)
-    return U64(lo, hi)
-
-
 def _external_product_accumulate(acc: U64, diff: U64, bsk_j: jnp.ndarray,
-                                 p: CryptoParams, use_pallas: bool) -> U64:
+                                 p: CryptoParams) -> U64:
     """acc += GGSW_j (x) diff.   diff: U64 [B, k+1, N]; bsk_j int8
     [R, k+1, 8, 2N] (doubled limb planes)."""
     dl = _digit_limbs(diff, p)
-    if use_pallas:
-        ext = _ext_u64_pallas(dl, bsk_j, p)
-    else:
-        planes = _ext_planes_einsum(dl, bsk_j, p)
-        ext = recombine_planes(jnp.moveaxis(planes, 2, -1))  # U64 [B, k+1, N]
+    planes = _ext_planes_einsum(dl, bsk_j, p)
+    ext = recombine_planes(jnp.moveaxis(planes, 2, -1))  # U64 [B, k+1, N]
     return torus.add(acc, ext)
 
 
-@functools.lru_cache(maxsize=None)
-def _neg_consts_cached(n: int, num_la: int):
-    from .kernels.ntt_ext import pack_neg_consts
-
-    # Built under compile-time eval: the cache outlives any single trace, so
-    # a first use inside a jit/scan trace must not stage these constants
-    # into (and leak them out of) that trace.
-    with jax.ensure_compile_time_eval():
-        return pack_neg_consts(n, num_la)
-
-
-@functools.lru_cache(maxsize=None)
-def _fused_consts_cached(n: int, num_la: int):
-    from .kernels.blind_rotate_fused import pack_fused_consts
-
-    with jax.ensure_compile_time_eval():
-        return pack_fused_consts(n, num_la)
-
-
-@functools.lru_cache(maxsize=None)
-def _fused32_consts_cached(n: int):
-    from .kernels.blind_rotate_fused32 import pack_fused32_consts
-
-    with jax.ensure_compile_time_eval():
-        return pack_fused32_consts(n)
-
-
 def blind_rotate(acc: U64, lwe_2n: jnp.ndarray, keys: DeviceServerKeys,
-                 use_pallas: bool = False, use_ntt: bool = False,
-                 use_ntt2: bool = False, use_fused: bool = False,
-                 rounded: bool = False, approx: bool = False) -> U64:
+                 use_ntt: bool = False) -> U64:
     """acc: U64 [B, k+1, N]; lwe_2n: int32 [B, n+1]. Sequential over the n
-    LWE coefficients (the inherently serial axis); throughput comes from B."""
+    LWE coefficients (the inherently serial axis); throughput comes from B.
+
+    use_ntt selects the CRT-NTT external product (needs keys.bsk_ntt);
+    otherwise the Hankel einsum over keys.bsk_limbs. Both are exact and
+    bit-identical to numpy_ref.blind_rotate."""
     p = keys.params
     N = p.polynomial_size
-    rotate = (_negacyclic_rotate_shear
-              if (use_pallas or use_ntt or use_ntt2 or use_fused)
-              else _negacyclic_rotate)
+    rotate = _negacyclic_rotate_shear if use_ntt else _negacyclic_rotate
 
-    # Initial rotation by -b (the LWE body). Applied up front for every
-    # path, including the fused kernel (whose per-step amounts exclude b),
-    # so the documented lwe_2n contract holds for direct callers; pbs_batch
-    # pre-rotates the test polynomial and passes b = 0, making this a no-op
-    # there.
+    # Initial rotation by -b (the LWE body); pbs_batch pre-rotates the test
+    # polynomial and passes b = 0, making this a no-op there.
     b = lwe_2n[:, -1]
     acc = rotate(acc, (2 * N - b) & (2 * N - 1), N)
-
-    if use_fused and p.torus_bits == 32:
-        from .kernels.blind_rotate_fused32 import blind_rotate_fused32
-
-        assert keys.bsk_ntt32 is not None, "pack_server_keys(with_ntt2=True)"
-        interpret = jax.default_backend() == "cpu"
-        B = acc.lo.shape[0]
-        nb = 128 // (N // 128)
-        bp = -(-B // nb) * nb
-        ahi = acc.hi
-        amounts = lwe_2n[:, :p.lwe_dimension]
-        if bp != B:
-            ahi = jnp.pad(ahi, ((0, bp - B), (0, 0), (0, 0)))
-            amounts = jnp.pad(amounts, ((0, bp - B), (0, 0)))
-        consts = _fused32_consts_cached(N)
-        # b_tile=256 + half-tile interleave: measured best on v5e (the
-        # wrapper clamps the tile and falls back to stage-major for tiles
-        # too small to split; output is bit-identical either way).
-        hi = blind_rotate_fused32(ahi, amounts, keys.bsk_ntt32, consts,
-                                  n_poly=N, base_log=p.pbs_base_log,
-                                  ell=p.pbs_level, b_tile=256, halves=True,
-                                  interpret=interpret, approx=approx)
-        return U64(jnp.zeros((B,) + hi.shape[1:], jnp.uint32), hi[:B])
-
-    if use_fused:
-        from .kernels.blind_rotate_fused import blind_rotate_fused
-
-        assert keys.bsk_ntt2 is not None, "pack_server_keys(with_ntt2=True)"
-        assert p.pbs_level == 1, "fused path assumes ell=1"
-        num_la = (p.pbs_base_log + 8) // 8
-        interpret = jax.default_backend() == "cpu"
-        B = acc.lo.shape[0]
-        nb = 128 // (N // 128)
-        bp = -(-B // nb) * nb
-        alo, ahi = acc.lo, acc.hi
-        amounts = lwe_2n[:, :p.lwe_dimension]
-        if bp != B:
-            padc = ((0, bp - B), (0, 0), (0, 0))
-            alo = jnp.pad(alo, padc)
-            ahi = jnp.pad(ahi, padc)
-            amounts = jnp.pad(amounts, ((0, bp - B), (0, 0)))
-        consts = _fused_consts_cached(N, num_la)
-        lo, hi = blind_rotate_fused(alo, ahi, amounts, keys.bsk_ntt2, consts,
-                                    n_poly=N, base_log=p.pbs_base_log,
-                                    interpret=interpret, rounded=rounded,
-                                    approx=approx)
-        return U64(lo[:B], hi[:B])
-
-    def step_pallas(j, acc):
-        """Fully-fused prologue: rotate+diff+decompose+limbs in one Pallas
-        kernel, external product + u64 recombine in a second.
-
-        Measured SLOWER than letting XLA fuse the prologue (351 vs 377
-        PBS/s at B=1024, prod params): XLA's fusion of the shear stages is
-        already traffic-optimal and the VMEM kernel pays its VPU cost
-        serially. Kept behind FUSED_PROLOGUE for future experiments (e.g.
-        if a later kernel folds the ext-product input DMA directly)."""
-        from .kernels.ext_product import ext_product_u64
-        from .kernels.rotate_decompose import rotate_diff_decompose
-
-        a_j = jax.lax.dynamic_slice_in_dim(lwe_2n, j, 1, axis=1)[:, 0]
-        bsk_j = jax.lax.dynamic_slice_in_dim(keys.bsk_limbs, j, 1, axis=0)[0]
-        num_la = (p.pbs_base_log + 8) // 8
-        interpret = jax.default_backend() == "cpu"
-        dl = rotate_diff_decompose(
-            acc.lo, acc.hi, a_j, n_poly=N, base_log=p.pbs_base_log,
-            num_la=num_la, b_tile=128,
-            interpret=interpret)  # [La, B, (k+1)N], natural c
-        B = dl.shape[1]
-        kp1 = p.glwe_dimension + 1
-        # reverse c within each i block (one fused XLA pass)
-        drev = jnp.flip(dl.reshape(num_la, B, kp1, N), axis=-1)
-        drev = drev.reshape(num_la, B, kp1 * N)
-        p4 = jnp.concatenate([bsk_j, bsk_j], axis=-1)
-        b_tile = next((d for d in (128, 64, 32, 16, 8) if B % d == 0), B)
-        lo, hi = ext_product_u64(drev, p4, n_poly=N, b_tile=b_tile,
-                                 interpret=interpret)
-        return torus.add(acc, U64(lo, hi))
 
     def step_ntt(j, acc):
         """CRT-NTT external product (O(N log N)-class; crypto/ntt.py)."""
@@ -593,47 +499,18 @@ def blind_rotate(acc: U64, lwe_2n: jnp.ndarray, keys: DeviceServerKeys,
         ext = recombine_planes(jnp.moveaxis(planes, 2, -1))
         return torus.add(acc, ext)
 
-    def step_ntt2(j, acc):
-        """Fused prologue + negacyclic CRT-NTT Pallas kernel (the v2 hot
-        path; kernels/ntt_ext.py)."""
-        from .kernels.ntt_ext import ntt_ext_u64
-        from .kernels.rotate_decompose import rotate_diff_decompose
-
-        a_j = jax.lax.dynamic_slice_in_dim(lwe_2n, j, 1, axis=1)[:, 0]
-        khat_j = jax.lax.dynamic_slice_in_dim(keys.bsk_ntt2, j, 1, axis=0)[0]
-        num_la = (p.pbs_base_log + 8) // 8
-        interpret = jax.default_backend() == "cpu"
-        dl = rotate_diff_decompose(
-            acc.lo, acc.hi, a_j, n_poly=N, base_log=p.pbs_base_log,
-            num_la=num_la, b_tile=128,
-            interpret=interpret)  # [La, B, (k+1)N], natural c
-        B = dl.shape[1]
-        nb = 128 // (N // 128)  # items packed per 128-row chunk
-        bp = -(-B // nb) * nb
-        if bp != B:
-            dl = jnp.pad(dl, ((0, 0), (0, bp - B), (0, 0)))
-        consts = _neg_consts_cached(N, num_la)
-        lo, hi = ntt_ext_u64(dl, khat_j, consts, n_poly=N,
-                             interpret=interpret)
-        kp1 = p.glwe_dimension + 1
-        return torus.add(acc, U64(lo[:B], hi[:B]))
-
     def step(j, acc):
         a_j = jax.lax.dynamic_slice_in_dim(lwe_2n, j, 1, axis=1)[:, 0]
         bsk_j = jax.lax.dynamic_slice_in_dim(keys.bsk_limbs, j, 1, axis=0)[0]
         rotated = rotate(acc, a_j, N)
         diff = torus.sub(rotated, acc)
-        return _external_product_accumulate(acc, diff, bsk_j, p, use_pallas)
+        return _external_product_accumulate(acc, diff, bsk_j, p)
 
-    if use_ntt2:
-        assert keys.bsk_ntt2 is not None, "pack_server_keys(with_ntt2=True)"
-        assert p.pbs_level == 1, "ntt2 path assumes ell=1 (prologue kernel)"
-        return jax.lax.fori_loop(0, p.lwe_dimension, step_ntt2, acc)
     if use_ntt:
-        assert keys.bsk_ntt is not None, "pack_server_keys(with_ntt=True)"
+        if keys.bsk_ntt is None:
+            raise ValueError("the CRT-NTT path needs keys packed with "
+                             "pack_server_keys(with_ntt=True)")
         return jax.lax.fori_loop(0, p.lwe_dimension, step_ntt, acc)
-    if use_pallas and p.pbs_level == 1 and FUSED_PROLOGUE:
-        return jax.lax.fori_loop(0, p.lwe_dimension, step_pallas, acc)
     return jax.lax.fori_loop(0, p.lwe_dimension, step, acc)
 
 
@@ -664,14 +541,9 @@ def sample_extract(acc: U64, p: CryptoParams) -> U64:
 # Full PBS
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("use_pallas", "use_ntt",
-                                              "use_ntt2", "use_fused",
-                                              "rounded", "approx"))
+@functools.partial(jax.jit, static_argnames=("use_ntt",))
 def pbs_batch(ct: U64, lut_idx: jnp.ndarray, lut_bank: U64,
-              keys: DeviceServerKeys, use_pallas: bool = False,
-              use_ntt: bool = False, use_ntt2: bool = False,
-              use_fused: bool = False, rounded: bool = False,
-              approx: bool = False) -> U64:
+              keys: DeviceServerKeys, use_ntt: bool = False) -> U64:
     """Apply per-item LUTs to a batch of big-key LWE ciphertexts.
 
     ct: U64 [B, kN+1]; lut_idx: int32 [B] into lut_bank U64 [L, 2N].
@@ -687,7 +559,7 @@ def pbs_batch(ct: U64, lut_idx: jnp.ndarray, lut_bank: U64,
     # Init accumulator: body = testpoly * X^{-b}; masks start at zero.
     b = lwe_2n[:, -1]
     sel = U64(lut_bank.lo[lut_idx], lut_bank.hi[lut_idx])  # [B, 2N]
-    if use_pallas or use_ntt or use_ntt2 or use_fused:
+    if use_ntt:
         # gather-free: rotate the N-coefficient poly by (2N - b) via shear
         poly = U64(sel.lo[:, None, :N], sel.hi[:, None, :N])  # [B, 1, N]
         body = _negacyclic_rotate_shear(poly, (2 * N - b) & (2 * N - 1), N)
@@ -702,7 +574,5 @@ def pbs_batch(ct: U64, lut_idx: jnp.ndarray, lut_bank: U64,
     )
 
     lwe_nob = jnp.concatenate([lwe_2n[:, :-1], jnp.zeros((B, 1), jnp.int32)], axis=1)
-    acc = blind_rotate(acc, lwe_nob, keys, use_pallas=use_pallas,
-                       use_ntt=use_ntt, use_ntt2=use_ntt2,
-                       use_fused=use_fused, rounded=rounded, approx=approx)
+    acc = blind_rotate(acc, lwe_nob, keys, use_ntt=use_ntt)
     return sample_extract(acc, p)

@@ -2,10 +2,9 @@
 
 The reference's only observability is one ``Instant::now()`` per method
 printed to stdout (reference src/main.rs:103-114) and a pass/fail line
-(src/utils.rs:114-120). For a production TPU service the currency is
+(src/utils.rs:114-120). For a production service the currency is
 *bootstraps*: every homomorphic string op lowers to a fixed number of
-batched PBS calls, and PBS/s/chip is the headline capacity metric
-(BASELINE.md). This module counts them at the one chokepoint every LUT
+batched PBS calls, and PBS/s per card is the capacity metric. This module counts them at the one chokepoint every LUT
 evaluation passes through (``ShortintContext._pbs_padded``) and exposes:
 
 - a global, always-on counter (negligible overhead: pure Python ints

@@ -2,14 +2,18 @@
 
 - csprng: AES-128-CTR secure randomness for client-side key generation and
   encryption, replacing the reference's concrete-csprng/aes native deps
-  (SURVEY.md section 2.3). Compiled on first use; falls back to
-  numpy's PCG64 (flagged non-secure) if no compiler is available.
+  (SURVEY.md section 2.3). Falls back to numpy's PCG64 (flagged
+  non-secure) if no compiler is available.
 - keygen: full TFHE keygen (secret keys, bootstrap key, keyswitch key) in
   C++/OpenMP — the production path for large parameter sets, where the
   NumPy oracle keygen takes ~70 s. Semantics match numpy_ref.keygen
   (binary keys, gadget-scaled GGSW/KSK encryptions); randomness is drawn
   from AES-CTR counter regions disjoint from the client's encryption
   stream.
+
+Both libraries are built from the .cpp sources beside this file with g++
+at first use, into ``build/`` here (listed in .gitignore), and rebuilt
+when a source is newer than the library.
 """
 
 from __future__ import annotations
@@ -21,22 +25,31 @@ import subprocess
 
 import numpy as np
 
-_HERE = os.path.dirname(__file__)
-_SO_PATH = os.path.join(_HERE, "libcsprng.so")
-_KG_SO_PATH = os.path.join(_HERE, "libkeygen.so")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_HERE, "build")
+_CSPRNG_SRC = os.path.join(_HERE, "csprng.cpp")
+_KEYGEN_SRC = os.path.join(_HERE, "keygen.cpp")
+_SO_PATH = os.path.join(BUILD_DIR, "libcsprng.so")
+_KG_SO_PATH = os.path.join(BUILD_DIR, "libkeygen.so")
 _LIB = None
 _KG_LIB = None
 
 
 def _compile(src: str, out: str, extra_groups) -> bool:
+    """Build src into out with the first flag group g++ accepts.  Writes a
+    per-process temporary and renames it, so concurrent builders (test
+    workers) never load a half-written library."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
     flags = ["-O3", "-shared", "-fPIC", "-std=c++17"]
     for extra in extra_groups:
-        cmd = ["g++", *flags, *extra, src, "-o", out]
+        cmd = ["g++", *flags, *extra, src, "-o", tmp]
         try:
             subprocess.run(cmd, check=True, capture_output=True)
-            return True
         except (subprocess.CalledProcessError, FileNotFoundError):
             continue
+        os.replace(tmp, out)
+        return True
     return False
 
 
@@ -48,17 +61,12 @@ def _stale(so_path: str, srcs) -> bool:
     return any(os.path.getmtime(s) > so_m for s in srcs)
 
 
-def _build() -> bool:
-    return _compile(os.path.join(_HERE, "csprng.cpp"), _SO_PATH,
-                    (["-maes", "-msse4.1"], []))
-
-
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    if not os.path.exists(_SO_PATH):
-        if not _build():
+    if _stale(_SO_PATH, (_CSPRNG_SRC,)):
+        if not _compile(_CSPRNG_SRC, _SO_PATH, (["-maes", "-msse4.1"], [])):
             return None
     lib = ctypes.CDLL(_SO_PATH)
     lib.aes128_ctr_fill.argtypes = [
@@ -73,9 +81,9 @@ def _load_keygen():
     global _KG_LIB
     if _KG_LIB is not None:
         return _KG_LIB
-    src = os.path.join(_HERE, "keygen.cpp")
-    if _stale(_KG_SO_PATH, (src, os.path.join(_HERE, "csprng.cpp"))):
-        if not _compile(src, _KG_SO_PATH,
+    # keygen.cpp #includes csprng.cpp
+    if _stale(_KG_SO_PATH, (_KEYGEN_SRC, _CSPRNG_SRC)):
+        if not _compile(_KEYGEN_SRC, _KG_SO_PATH,
                         (["-maes", "-msse4.1", "-fopenmp"],
                          ["-maes", "-msse4.1"], ["-fopenmp"], [])):
             return None

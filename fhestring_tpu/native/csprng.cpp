@@ -1,6 +1,6 @@
 // AES-128-CTR cryptographically secure PRNG.
 //
-// TPU-native counterpart of the reference's `concrete-csprng` + `aes`
+// Counterpart of the reference's `concrete-csprng` + `aes`
 // native dependencies (SURVEY.md section 2.3): all client-side randomness
 // (secret keys, encryption masks, noise sampling) is derived from an
 // AES-128 counter stream.  Uses AES-NI when the build host supports it,

@@ -1,6 +1,6 @@
 // Native TFHE key generation (client-side, CPU).
 //
-// TPU-native counterpart of the key-generation machinery inside tfhe-rs
+// Counterpart of the key-generation machinery inside tfhe-rs
 // (reference dependency: `gen_keys_radix`, reference src/client_key.rs:31;
 // SURVEY.md section 2.3): binary LWE/GLWE secret keys, the bootstrap key
 // (GGSW encryptions of every LWE secret bit) and the big->small keyswitch

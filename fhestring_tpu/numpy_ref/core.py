@@ -1,6 +1,6 @@
 """Bit-exact NumPy reference implementation of the CGGI/TFHE pipeline.
 
-This is the correctness oracle for the JAX/Pallas production path: every
+This is the correctness oracle for the JAX production path: every
 device kernel (blind rotation, sample extraction, keyswitch, LUT evaluation)
 is validated against this module on small parameter sets.  It replaces the
 role tfhe-rs v0.5.2 plays for the reference crate (see SURVEY.md section 2.3;
@@ -37,9 +37,12 @@ def negacyclic_matrix(poly: np.ndarray) -> np.ndarray:
     coefficient vector ``a`` with ``poly``.
     """
     n = poly.shape[-1]
-    doubled = np.concatenate([poly.astype(U64), U64(0) - poly.astype(U64)])
-    idx = (np.arange(n)[None, :] - np.arange(n)[:, None]) % (2 * n)
-    return doubled[idx]
+    poly = poly.astype(U64)
+    # Row c is the length-N window of w = [-poly[1:], poly] that starts at
+    # N-1-c: M[c, t] = poly[t-c] for t >= c and -poly[N+t-c] below.  A
+    # read-only strided view, no N x N gather.
+    w = np.concatenate([U64(0) - poly[1:], poly])
+    return np.lib.stride_tricks.sliding_window_view(w, n)[::-1]
 
 
 def polymul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -264,143 +267,6 @@ def cmux(bsk_j: np.ndarray, d0: np.ndarray, d1: np.ndarray, p: CryptoParams) -> 
     return d0 + external_product(bsk_j, (d1 - d0), p)
 
 
-def cmux_rounded(bsk_j: np.ndarray, acc: np.ndarray, aj: int,
-                 p: CryptoParams) -> np.ndarray:
-    """CMux with ROUNDED gadget decomposition (ell = 1 only).
-
-    Instead of decomposing diff = acc*X^a - acc exactly, decompose the
-    difference of the pre-rounded plane acc_r = round(acc / 2^(64-B))
-    (B = pbs_base_log), rotated in Z_{2^B}.  The decomposition
-    approximation error grows from 2^(63-B) to <= ~2.5 * 2^(64-B) per
-    coefficient (acc rounding + rotation rounding + negation ties) — a
-    <= 5x std-dev increase of the decomposition noise term, far inside the
-    2_2 parameter budget (~140 sigma of margin at production parameters).
-    This halves the data the per-step rotation touches: one B-bit plane
-    instead of the u64 accumulator.  Used by the fused TPU kernel
-    (crypto/kernels/blind_rotate_fused.py, rounded=True).
-    """
-    assert p.pbs_level == 1
-    blog = p.pbs_base_log
-    shift = p.q_bits - blog
-    mask = U64((1 << blog) - 1)
-    half = 1 << (blog - 1)
-    out = acc.copy()
-    for r in range(p.glwe_dimension + 1):
-        acc_r = ((acc[r] >> U64(shift)) + ((acc[r] >> U64(shift - 1))
-                                           & U64(1))) & mask
-        # negacyclic rotate in Z_{2^B}
-        n = acc_r.shape[-1]
-        a = int(aj) % (2 * n)
-        flip = a >= n
-        a %= n
-        rot = np.roll(acc_r, a)
-        if a:
-            rot[:a] = (U64(0) - rot[:a]) & mask
-        if flip:
-            rot = (U64(0) - rot) & mask
-        state = (rot - acc_r) & mask
-        d = state.astype(np.int64) - (state >= half).astype(np.int64) * (1 << blog)
-        du = d.astype(U64)  # two's complement wraps mod q
-        row = bsk_j[r]      # ell = 1: [k+1, N]
-        for col in range(p.glwe_dimension + 1):
-            out[col] = out[col] + polymul(du, row[col])
-    return out
-
-
-def _balanced_limbs_i64(v: np.ndarray, num_limbs: int) -> np.ndarray:
-    """Signed ints -> balanced base-256 limb planes [num_limbs, ...] (int64),
-    v == sum_i limbs[i] * 256**i exactly (same scheme as pbs.balanced_limbs_i32
-    and keys.balanced_limbs_u64)."""
-    out = np.zeros((num_limbs,) + v.shape, dtype=np.int64)
-    state = v.astype(np.int64).copy()
-    for i in range(num_limbs):
-        l = ((state + 128) & 255) - 128
-        out[i] = l
-        state = (state - l) >> 8
-    return out
-
-
-def polymul_planes(d: np.ndarray, poly: np.ndarray, num_la: int,
-                   min_shift: int = 0) -> np.ndarray:
-    """Negacyclic d (x) poly mod 2**64 evaluated over balanced base-256 limb
-    planes, TRUNCATING output planes whose base-256 shift is below
-    ``min_shift``.
-
-    This is the oracle for the fused TPU kernel's ``approx`` mode: the kernel
-    computes sum_{la+lb in [min_shift, 8)} 256^(la+lb) conv(d_la, k_lb); the
-    dropped low planes (la+lb < min_shift) carry magnitude <= ~2^(8*min_shift
-    + 26) — pure low-order noise, budgeted like tfhe-rs's f64 FFT error.
-    min_shift=0 is bit-identical to polymul(d mod 2**64, poly)."""
-    n = poly.shape[-1]
-    dl = _balanced_limbs_i64(d, num_la)                       # [La, N]
-    # key limbs: balanced limbs of u64 with the final carry dropped (mod 2^64
-    # exact), as in keys.balanced_limbs_u64
-    state = poly.astype(U64).copy()
-    kl = np.zeros((8, n), dtype=np.int64)
-    for i in range(8):
-        dd = (state & U64(0xFF)).astype(np.int64)
-        state >>= U64(8)
-        carry = (dd >= 128).astype(np.int64)
-        kl[i] = dd - carry * 256
-        state += carry.astype(U64)
-    # negacyclic integer conv per plane pair (exact in int64: |.| <= N*2^14)
-    idx = (np.arange(n)[None, :] - np.arange(n)[:, None]) % (2 * n)
-    out = np.zeros(n, dtype=U64)
-    for lb in range(8):
-        doubled = np.concatenate([kl[lb], -kl[lb]])
-        mat = doubled[idx]                                    # [N, N] int64
-        for la in range(num_la):
-            s = la + lb
-            if s >= 8 or s < min_shift:
-                continue
-            conv = dl[la] @ mat                               # exact int64
-            out = out + (conv.astype(U64) << U64(8 * s))
-    return out
-
-
-def cmux_fused(bsk_j: np.ndarray, acc: np.ndarray, aj: int, p: CryptoParams,
-               rounded: bool = False, min_shift: int = 0) -> np.ndarray:
-    """CMux evaluated exactly the way the fused TPU kernels evaluate it:
-    optional ROUNDED decomposition (see cmux_rounded; ell = 1 only) and
-    optional plane truncation (see polymul_planes).  With rounded=False,
-    min_shift=0 this is bit-identical to cmux(bsk_j, acc, rot(acc)).  For
-    ell > 1 (the 32-bit turbo set) every gadget level contributes one
-    plane-truncated product, matching blind_rotate_fused32's approx mode
-    (its dropped kernel plane s'=0 is u64 limb plane s=4, so min_shift=5)."""
-    blog, ell = p.pbs_base_log, p.pbs_level
-    assert not (rounded and ell != 1)
-    num_la = (blog + 8) // 8
-    out = acc.copy()
-    for r in range(p.glwe_dimension + 1):
-        if rounded:
-            shift = p.q_bits - blog
-            mask = U64((1 << blog) - 1)
-            half = 1 << (blog - 1)
-            acc_r = ((acc[r] >> U64(shift)) + ((acc[r] >> U64(shift - 1))
-                                               & U64(1))) & mask
-            n = acc_r.shape[-1]
-            a = int(aj) % (2 * n)
-            flip = a >= n
-            a %= n
-            rot = np.roll(acc_r, a)
-            if a:
-                rot[:a] = (U64(0) - rot[:a]) & mask
-            if flip:
-                rot = (U64(0) - rot) & mask
-            state = (rot - acc_r) & mask
-            d = state.astype(np.int64) - (state >= half).astype(np.int64) * (1 << blog)
-            digits = d[None]
-        else:
-            diff = poly_rotate(acc[r], int(aj)) - acc[r]
-            digits = decompose(diff, blog, ell, p.q_bits)
-        for lev in range(ell):
-            row = bsk_j[r * ell + lev]   # [k+1, N]
-            for col in range(p.glwe_dimension + 1):
-                out[col] = out[col] + polymul_planes(digits[lev], row[col],
-                                                     num_la, min_shift)
-    return out
-
-
 def modswitch(ct: np.ndarray, p: CryptoParams) -> np.ndarray:
     """Switch LWE coefficients from q to 2N (rounding)."""
     two_n = 2 * p.polynomial_size
@@ -409,27 +275,15 @@ def modswitch(ct: np.ndarray, p: CryptoParams) -> np.ndarray:
     return (rounded % U64(two_n)).astype(np.int64)
 
 
-def blind_rotate(acc: np.ndarray, lwe_2n: np.ndarray, srv: ServerKeys,
-                 rounded: bool = False, min_shift: int = 0) -> np.ndarray:
-    """Rotate acc by -phase(ct) homomorphically; acc: [k+1, N] GLWE.
-
-    rounded=True uses the rounded gadget decomposition (see cmux_rounded);
-    min_shift>0 truncates low external-product limb planes (see
-    polymul_planes). Both are plaintext-equivalent approximations with
-    slightly larger (budgeted) noise, mirroring the fused TPU kernel's
-    rounded/approx modes."""
+def blind_rotate(acc: np.ndarray, lwe_2n: np.ndarray,
+                 srv: ServerKeys) -> np.ndarray:
+    """Rotate acc by -phase(ct) homomorphically; acc: [k+1, N] GLWE."""
     p = srv.params
     a, b = lwe_2n[:-1], int(lwe_2n[-1])
     acc = np.stack([poly_rotate(poly, -b) for poly in acc])
     for j in range(p.lwe_dimension):
-        if min_shift:
-            acc = cmux_fused(srv.bsk[j], acc, int(a[j]), p, rounded=rounded,
-                             min_shift=min_shift)
-        elif rounded:
-            acc = cmux_rounded(srv.bsk[j], acc, int(a[j]), p)
-        else:
-            rotated = np.stack([poly_rotate(poly, int(a[j])) for poly in acc])
-            acc = cmux(srv.bsk[j], acc, rotated, p)
+        rotated = np.stack([poly_rotate(poly, int(a[j])) for poly in acc])
+        acc = cmux(srv.bsk[j], acc, rotated, p)
     return acc
 
 
@@ -457,6 +311,52 @@ def keyswitch(ct_big: np.ndarray, srv: ServerKeys) -> np.ndarray:
         d = digits[lev].astype(U64)
         out = out - (d[:, None] * srv.ksk[:, lev, :]).sum(axis=0, dtype=U64)
     return out
+
+
+# ---------------------------------------------------------------------------
+# External product over int8 limb planes: the pre-recombination contract of
+# the device Hankel path (crypto/pbs._ext_planes_einsum) and of the CRT-NTT
+# references (crypto/ntt.py, crypto/ntt2.py).
+# ---------------------------------------------------------------------------
+
+def ext_product_planes_reference(drev: np.ndarray, p4: np.ndarray, *,
+                                 n_poly: int) -> np.ndarray:
+    """Limb-plane external product by explicit negacyclic Hankel strips.
+
+    drev: int8 [La, B, R*N] digit limb planes (c reversed within each of the
+    R row blocks); p4: int8 [R, k+1, 8, >= 2N] doubled key limb planes.
+    Returns int32 planes [B, k+1, 8, N]; recombine with
+    ``sum_s 256^s * sign_extend(plane_s) mod 2^64`` (recombine_planes_numpy).
+    """
+    drev = np.asarray(drev)
+    p4 = np.asarray(p4)
+    num_la, B, _ = drev.shape
+    num_r, kp1 = p4.shape[:2]
+    two_n = 2 * n_poly
+    # strip[c', t] = p2[(t - (N-1-c')) mod 2N]
+    t = np.arange(n_poly)
+    idx = (t[None, :] - (n_poly - 1 - t)[:, None]) % two_n
+    d = drev.reshape(num_la, B, num_r, n_poly).astype(np.int64)
+    out = np.zeros((B, kp1, 8, n_poly), np.int64)
+    for i in range(num_r):
+        for j in range(kp1):
+            for lb in range(8):
+                strip = p4[i, j, lb, :two_n].astype(np.int64)[idx]
+                for la in range(min(num_la, 8 - lb)):
+                    out[:, j, la + lb] += d[la, :, i] @ strip
+    return out.astype(np.int32)
+
+
+def recombine_planes_numpy(planes) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, hi) uint32 halves of sum_s 256^s * planes[..., s, :] mod 2^64,
+    from int32 planes [..., 8, N]."""
+    planes = np.asarray(planes)
+    acc = np.zeros(planes.shape[:-2] + planes.shape[-1:], np.uint64)
+    for s in range(planes.shape[-2]):
+        v = planes[..., s, :].astype(np.int64).astype(np.uint64)
+        acc += v << np.uint64(8 * s)
+    return ((acc & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (acc >> np.uint64(32)).astype(np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,14 @@
 """Multi-chip execution: shard the PBS batch / character lanes over a mesh.
 
 The reference is single-process, single-node (rayon threads only —
-SURVEY.md section 2.4); parallel scale-out is new design territory for the
-TPU build. Two shardings are implemented:
+SURVEY.md section 2.4); parallel scale-out is new design territory here.
+Two shardings are implemented:
 
 1. **Batch sharding** (pbs_batch_sharded): the PBS batch axis (string
    positions x radix blocks x concurrent ops) is pure data parallelism;
    evaluation keys replicated (48 MB BSK + 61 MB KSK per chip at prod
    params). Aggregate bits (contains' OR-tree, len's popcount, eq's
-   AND-tree) reduce across chips via GSPMD collectives over ICI. Zero
+   AND-tree) reduce across devices via GSPMD collectives. Zero
    communication inside a PBS — this is the default and wins whenever the
    keys fit in HBM.
 
@@ -17,7 +17,7 @@ TPU build. Two shardings are implemented:
    rows, so per-chip key memory drops by the mesh size. The cost is one
    all_gather of the external-product delta ([B, (k+1)/d, N] u64) per
    blind-rotation step plus one psum in the keyswitch. When it wins: when
-   key material doesn't fit per-chip HBM — multi-tenant serving holding
+   key material doesn't fit per-device memory — multi-tenant serving holding
    MANY clients' bootstrap keys resident, or large-N / multi-level
    parameter sets (BSK is O(n*ell*(k+1)^2*N); doubling N at ell=2 already
    exceeds 380 MB/key). For the single-key prod set, batch sharding is
@@ -27,11 +27,18 @@ TPU build. Two shardings are implemented:
 
 from __future__ import annotations
 
+from functools import partial
+
 import jax
+import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .crypto.pbs import _split2
+
 BATCH_AXIS = "data"
+INT32_SAFE = (1 << 31) - 1
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
@@ -52,33 +59,27 @@ def replicate(mesh: Mesh, tree):
     return jax.tree.map(lambda x: jax.device_put(x, spec), tree)
 
 
-def pbs_batch_sharded(ct, lut_idx, lut_bank, keys, mesh: Mesh,
-                      use_pallas: bool = False, **pbs_kwargs):
+def pbs_batch_sharded(ct, lut_idx, lut_bank, keys, mesh: Mesh):
     """Batched PBS with the batch axis sharded over the mesh.
 
-    Explicit shard_map (not GSPMD auto-sharding): each chip runs the full
+    Explicit shard_map (not GSPMD auto-sharding): each device runs the full
     blind-rotation loop on its lane slice with evaluation keys + LUT bank
-    replicated. There is no cross-chip communication inside a PBS — the
-    collectives appear only in the aggregate reductions the string engine
-    runs on the PBS outputs (contains' OR-tree, len's popcount, ...),
-    which GSPMD lowers to psum over ICI.
+    replicated, on the path ``bootstrap_path`` picks for the platform.
+    There is no cross-device communication inside a PBS — the collectives
+    appear only in the aggregate reductions the string engine runs on the
+    PBS outputs (contains' OR-tree, len's popcount, ...), which GSPMD lowers
+    to psum.
 
     ct: U64 [B, kN+1] with B divisible by the mesh size.
     """
-    from functools import partial
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    from .crypto.pbs import pbs_batch
+    from .crypto.pbs import bootstrap_path, pbs_batch
 
     spec_b = P(BATCH_AXIS)
     spec_r = P()
+    use_ntt = bootstrap_path(keys.params, mesh.devices.flat[0].platform).use_ntt
 
     fn = shard_map(
-        partial(pbs_batch, use_pallas=use_pallas, **pbs_kwargs),
+        partial(pbs_batch, use_ntt=use_ntt),
         mesh=mesh,
         in_specs=(
             jax.tree.map(lambda _: spec_b, ct),
@@ -95,6 +96,38 @@ def pbs_batch_sharded(ct, lut_idx, lut_bank, keys, mesh: Mesh,
 # ---------------------------------------------------------------------------
 # Polynomial-axis-sharded NTT (butterfly-stage all-to-all; SURVEY 2.4 item 3)
 # ---------------------------------------------------------------------------
+
+def _modc_f(v, bound: int, p: int):
+    """One-multiply approximate Barrett reduction: v' == v (mod p) with
+    |v'| <= ~0.51*p, computed as v - round(fl(v)*fl(1/p))*p in exact int32.
+
+    The f32 quotient may be off by eps <= (bound/p)*2^-22 + 2^-22; that only
+    widens the output bound (p*(0.5+eps)), never breaks the residue.
+    Returns (v', new_bound)."""
+    assert bound <= INT32_SAFE - 3 * p, bound
+    q = jnp.round(v.astype(jnp.float32) * np.float32(1.0 / p)).astype(jnp.int32)
+    out = v - q * np.int32(p)
+    qerr = (bound / p) * 2.0 ** -22 + 2.0 ** -22
+    return out, int(p * (0.5 + qerr)) + 2
+
+
+def _modc(v, bound: int, p: int):
+    """Exact centered reduction mod p of |v| <= bound: |out| <= (p-1)/2."""
+    v, nb = _modc_f(v, bound, p)
+    if nb > (p - 1) // 2:
+        half = np.int32((p - 1) // 2)
+        v = v - jnp.where(v > half, np.int32(p), 0)
+        v = v + jnp.where(v < -half, np.int32(p), 0)
+    return v
+
+
+def _horner4(p00, p01, p10, p11, p: int):
+    """Recombine 4 limb-pair dot planes (each |.| <= 2^21) exactly mod p:
+    p00 + 256*(p01 + p10) + 65536*p11, centered."""
+    t, tb = _modc_f(p01 + p10 + (p11 << 8), (1 << 22) + (1 << 29), p)
+    v = p00 + (t << 8)
+    return _modc(v, (1 << 21) + 256 * tb, p)
+
 
 POLY_AXIS = "poly"
 
@@ -116,32 +149,22 @@ def ntt_fwd_poly_sharded(x, n_poly: int, prime: int, mesh: Mesh):
 
     Bit-identical to ntt2.neg_fwd(x, make_neg_plan(prime, n_poly))
     (tests/test_parallel.py). All modular arithmetic is exact: int8-limb
-    contractions with int32 accumulation + the kernels' fold/Barrett
-    reduction (ntt_ext._modc), so the same code path is TPU-ready.
+    contractions with int32 accumulation + a fold/Barrett reduction
+    (_modc).
 
     When it wins: batch sharding (pbs_batch_sharded) is communication-free
     and preferred whenever each chip holds >= 1 batch item per step; this
-    path exists for transforms too LARGE for one chip — N beyond single-
-    chip VMEM/HBM (e.g. multi-megabyte CRT-RNS ciphertexts), where the
-    polynomial axis itself must span devices and the inter-stage
-    all_to_all rides ICI. The reference's concrete-fft has no multi-node
+    path exists for transforms too LARGE for one device (e.g.
+    multi-megabyte CRT-RNS ciphertexts), where the polynomial axis itself
+    must span devices and the inter-stage all_to_all crosses the device
+    interconnect. The reference's concrete-fft has no multi-node
     analog (single process; SURVEY.md section 2.4).
 
     x: int32 [..., N] centered digits (|x| <= 127, e.g. gadget digits);
     returns centered int32 hats [..., N] (h = k2*n1 + k1), replicated
     output gathered from the k2 shards.
     """
-    from functools import partial
-
-    import jax.numpy as jnp
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from .crypto import ntt2
-    from .crypto.kernels.ntt_ext import _horner4, _modc, _split2
 
     plan = ntt2.make_neg_plan(prime, n_poly)
     n1, n2 = plan.n1, plan.n2
@@ -176,8 +199,8 @@ def ntt_fwd_poly_sharded(x, n_poly: int, prime: int, mesh: Mesh):
         z0, z1 = _split2(st)
         d8 = partial(jnp.einsum, "...kj,jK->...kK",
                      preferred_element_type=jnp.int32)
-        out, _ = _horner4(d8(z0, w10), d8(z0, w11), d8(z1, w10),
-                          d8(z1, w11), prime, exact=True)
+        out = _horner4(d8(z0, w10), d8(z0, w11), d8(z1, w10),
+                          d8(z1, w11), prime)
         return out                                        # [.., k2_loc, n1]
 
     x2 = x.reshape(x.shape[:-1] + (n2, n1))
@@ -208,17 +231,7 @@ def ntt_inv_poly_sharded(ahat, n_poly: int, prime: int, mesh: Mesh,
     (tests/test_parallel.py). ahat: centered int32 [..., N] twisted hats
     (flat h = k2*n1 + k1); returns centered int32 coefficients [..., N].
     """
-    from functools import partial
-
-    import jax.numpy as jnp
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from .crypto import ntt2
-    from .crypto.kernels.ntt_ext import _horner4, _split2
 
     plan = ntt2.make_neg_plan(prime, n_poly)
     n1, n2 = plan.n1, plan.n2
@@ -240,8 +253,8 @@ def ntt_inv_poly_sharded(ahat, n_poly: int, prime: int, mesh: Mesh,
         z0, z1 = _split2(cl)
         d8 = partial(jnp.einsum, "...kj,jK->...kK",
                      preferred_element_type=jnp.int32)
-        q, _ = _horner4(d8(z0, w1i0), d8(z0, w1i1), d8(z1, w1i0),
-                        d8(z1, w1i1), prime, exact=True)
+        q = _horner4(d8(z0, w1i0), d8(z0, w1i1), d8(z1, w1i0),
+                        d8(z1, w1i1), prime)
         # butterfly-stage all_to_all: reshard k2 -> j1
         # local [.., k2_loc, n1(j1)] -> [.., n2(k2), n1_loc(j1)]
         q = jax.lax.all_to_all(q, POLY_AXIS, split_axis=q.ndim - 1,
@@ -252,8 +265,8 @@ def ntt_inv_poly_sharded(ahat, n_poly: int, prime: int, mesh: Mesh,
         z0, z1 = _split2(qt)
         e8 = partial(jnp.einsum, "...ij,ijk->...ik",
                      preferred_element_type=jnp.int32)
-        out, _ = _horner4(e8(z0, mi0l), e8(z0, mi1l), e8(z1, mi0l),
-                          e8(z1, mi1l), prime, exact=True)
+        out = _horner4(e8(z0, mi0l), e8(z0, mi1l), e8(z1, mi0l),
+                          e8(z1, mi1l), prime)
         return out                       # [.., j1_loc, n2(j2)]
 
     c = ahat.reshape(ahat.shape[:-1] + (n2, n1))
@@ -273,8 +286,7 @@ def ext_group_poly_sharded(digits, khat_prime, n_poly: int, prime: int,
                            mesh: Mesh, g: int = 0):
     """One external-product plane group mod one prime with the POLYNOMIAL
     axis sharded end-to-end — the butterfly transforms WIRED INTO the
-    external product (SURVEY 2.4 item 3, the round-3/4 verdicts' open
-    half):
+    external product (SURVEY 2.4 item 3):
 
         forward butterflies (one all_to_all per row transform; this
         prototype invokes the forward shard_map once per decomposition
@@ -285,21 +297,18 @@ def ext_group_poly_sharded(digits, khat_prime, n_poly: int, prime: int,
         needs NO communication) -> inverse butterflies (one all_to_all).
 
     The remaining external-product steps (CRT across primes, 256^{3g}
-    shift-plane recombine, accumulator add — see kernels/ntt_ext.py) are
+    shift-plane recombine, accumulator add — see ntt2.ext_u64_ntt2_numpy) are
     ELEMENTWISE in the coefficient domain and therefore shard-local by
     construction; this function is the complete communicating core.
 
     digits: int32 [R, ..., N] centered gadget digits (|.| <= 127), one per
         decomposition row; khat_prime: centered int [R, ..., N] NTT-domain
-        key hats mod `prime` for the same rows (ntt2.key_hats2 layout).
+        key hats mod `prime` for the same rows (ntt2.key_hats layout).
     Returns centered int32 [..., N]: coefficients of
         sigma_g * sum_i digits_i (x) key_i, bit-identical to the numpy
         composition neg_inv(sum_i center(neg_fwd(d_i) * khat_i)).
     """
-    import jax.numpy as jnp
-
     from .crypto import ntt2
-    from .crypto.kernels.ntt_ext import _modc
 
     R = digits.shape[0]
     half = (prime - 1) // 2
@@ -343,13 +352,6 @@ def pbs_batch_keysharded(ct, lut_idx, lut_bank, keys, mesh: Mesh):
     Requires (k+1) % mesh_size == 0 and (kN * ks_level) % mesh_size == 0.
     See the module docstring for when this beats batch sharding.
     """
-    from functools import partial as _partial
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from . import torus
     from .crypto import pbs as dpbs
     from .torus import U64

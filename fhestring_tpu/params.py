@@ -1,4 +1,4 @@
-"""Cryptographic parameter sets for the TPU-native TFHE engine.
+"""Cryptographic parameter sets for the TFHE engine.
 
 The reference (MakisChristou/fhestring) delegates all FHE math to tfhe-rs
 0.5.2 with the preset ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` and 4 radix blocks
@@ -8,7 +8,8 @@ so that noise budgets and plaintext encodings line up with the reference
 semantics, plus small deterministic parameter sets for fast CI.
 
 Unlike tfhe-rs, our polynomial products are *exact* integer negacyclic
-convolutions (int8-limb matmuls on the TPU MXU) rather than f64 FFTs, so
+convolutions (int8-limb contractions or an exact CRT-NTT) rather than f64
+FFTs, so
 there is no transform noise term; parity with the reference is asserted at
 the decrypted-plaintext level (see SURVEY.md section 6 "Hard parts").
 """
@@ -56,17 +57,15 @@ class CryptoParams:
     # 2**(64 - torus_bits), i.e. they live in the subgroup
     # 2**(64-torus_bits) * Z / 2**64 Z  ~  Z / 2**torus_bits Z.
     # torus_bits=64 is the tfhe-rs-mirroring default.  torus_bits=32 is the
-    # TPU turbo mode, implemented end-to-end: noise and uniform-mask
-    # sampling are quantized to the subgroup (numpy_ref._noise/_uniform,
+    # turbo mode, implemented end-to-end: noise and uniform-mask sampling
+    # are quantized to the subgroup (numpy_ref._noise/_uniform,
     # native/keygen.cpp), the low 4 of 8 balanced byte-limb planes of every
-    # key are exactly zero so device keys pack 4 planes (crypto/keys.py),
-    # the keyswitch matmul emits 4 output planes (crypto/pbs.keyswitch),
-    # and the blind rotation runs a dedicated single-u32-plane kernel with
-    # 1-limb digits and exact 2-prime CRT
-    # (crypto/kernels/blind_rotate_fused32.py).  All mod-2**64 arithmetic is
-    # inherited unchanged (the subgroup is closed under +, -, and integer
-    # scaling), so the U64 ciphertext representation keeps lo == 0
-    # everywhere.
+    # keyswitch key are exactly zero so device keys pack 4 planes
+    # (crypto/keys.py) and the keyswitch matmul emits 4 output planes
+    # (crypto/pbs.keyswitch), and the PBS digits fit one int8 limb.  All
+    # mod-2**64 arithmetic is inherited unchanged (the subgroup is closed
+    # under +, -, and integer scaling), so the U64 ciphertext
+    # representation keeps lo == 0 everywhere.
     torus_bits: int = 64
     # Linear-accumulation noise budget, in fresh-PBS variance units: the
     # shortint/radix/engine layers keep every ciphertext that can enter a
@@ -82,8 +81,8 @@ class CryptoParams:
     # production sets (sigma_ks ~ 2^-9.2, sigma_ms = sqrt((n+1)/12)/(2N)
     # ~ 2^-9.07), so the budget's own contribution is secondary; see the
     # turbo set below for the measured derivation.  34.0 is the
-    # conservative round-1 default kept for the sets that have no on-device
-    # calibration run recorded in benchmarks/RESULTS.md.
+    # conservative default kept for the sets that have no calibration run
+    # (benchmarks/noise_calibration.py).
     noise_budget: float = 34.0
 
     # ---- derived quantities -------------------------------------------------
@@ -153,9 +152,9 @@ PARAM_MESSAGE_2_CARRY_2_KS_PBS_64 = CryptoParams(
 PARAM_PROD = PARAM_MESSAGE_2_CARRY_2_KS_PBS_64
 
 # ---------------------------------------------------------------------------
-# 32-bit-torus production set (TPU turbo mode): same plaintext encoding and
-# the same end-to-end noise as the 64-bit mirror, at roughly half the kernel
-# cost.  Dimensioning rationale:
+# 32-bit-torus production set (turbo mode): same plaintext encoding and the
+# same end-to-end noise as the 64-bit mirror, with single-limb PBS digits
+# and half the keyswitch planes.  Dimensioning rationale:
 #
 # - LWE (n=742, sigma/q = 2^-17.1): identical dimension AND noise RATIO to
 #   tfhe-rs PARAM_MESSAGE_2_CARRY_2_KS_PBS — LWE security depends on
@@ -176,11 +175,9 @@ PARAM_PROD = PARAM_MESSAGE_2_CARRY_2_KS_PBS_64
 #   terms, WHICH ARE IDENTICAL to the 64-bit set (they depend only on
 #   n, N, ks ladder and relative LWE noise).  End-to-end decode margin is
 #   therefore the same as PARAM_PROD's; benchmarks/noise_calibration.py
-#   measures it on-device.
-# - Digits |d| <= 128 fit ONE balanced int8 limb, keys quantized to the
-#   subgroup have exactly 4 nonzero byte-limb planes, and every external-
-#   product shift plane fits exact 2-prime CRT in int32 — the kernel-cost
-#   halving the mode exists for (crypto/kernels/blind_rotate_fused32.py).
+#   measures it on the device path.
+# - Digits |d| <= 128 fit ONE balanced int8 limb and keys quantized to the
+#   subgroup have exactly 4 nonzero byte-limb planes.
 # ---------------------------------------------------------------------------
 PARAM_MESSAGE_2_CARRY_2_KS_PBS_32 = CryptoParams(
     name="msg2_carry2_ks_pbs_q32",
@@ -195,25 +192,27 @@ PARAM_MESSAGE_2_CARRY_2_KS_PBS_32 = CryptoParams(
     ks_base_log=3,
     ks_level=5,
     torus_bits=32,
-    # Budget derivation (on-device calibration, benchmarks/
-    # calibration_turbo_r03.json, 16384 bootstraps, exact fused32 kernel):
-    #   sigma_fresh = 5.51e-5 rel (2^-14.15), unit bookkeeping exact to 0.5%.
+    # Budget derivation (benchmarks/noise_calibration.py --params turbo,
+    # 16384 bootstraps on one H100 80GB HBM3 at 700 W, exact einsum path,
+    # zero decode failures):
+    #   sigma_fresh = 5.55e-5 rel (2^-14.14); the 4x+y pack measures 16.96
+    #   fresh-PBS units vs the theoretical 17.
     # Bootstrap-input margin model (the quantity that must clear 7.04 sigma
     # for the two-sided 2^-40 failure target; ks/ms terms from the design
     # analysis above, sigma_ks ~ 1.7e-3, sigma_ms = sqrt(743/12)/4096
     # ~ 1.92e-3):
-    #   V = 34  (old): margin = 2^-6 / sigma_in = 7.68 sigma
-    #   V = 192 (new): margin = 7.43 sigma  (p_fail ~ 2^-42.5 per PBS)
+    #   V = 34:  margin = 2^-6 / sigma_in = 7.68 sigma
+    #   V = 192: margin = 7.43 sigma  (p_fail ~ 2^-42.5 per PBS)
     #   V = 356 would cross the 7.04-sigma line — 192 keeps ~2x variance
     #   headroom on the budget-controlled term while nearly saturating the
     #   achievable grouping win (the ks+ms floor dominates regardless).
-    # Client-decode margin at V = 192: 68.6 * sqrt(17.07/192) = 20.5 sigma.
-    # Empirically re-validated at this budget by
-    # benchmarks/noise_calibration.py --pack-units 192 (round 4).
+    # Client-decode margin at V = 192: 68.4 * sqrt(16.96/192) = 20.3 sigma.
+    # benchmarks/noise_calibration.py --pack-units 192 bootstraps packs at
+    # this budget and counts decode failures.
     noise_budget=192.0,
 )
 
-# TPU turbo alias (the bench.py default path).
+# Turbo alias (the bench.py default parameter set).
 PARAM_TURBO = PARAM_MESSAGE_2_CARRY_2_KS_PBS_32
 
 # ---------------------------------------------------------------------------
@@ -253,7 +252,7 @@ PARAM_TEST_NOISY = CryptoParams(
 # (sigma_lwe ~ 2^-17.1) so keyswitch output noise exercises the same order
 # of magnitude of the half-slot margin as production, at CI-sized dims.
 # Small n/N keep the absolute blind-rotation noise low, so the margin here
-# is wider than prod's — prod margins are measured on-device by
+# is wider than prod's — prod margins are measured on the device path by
 # benchmarks/noise_calibration.py. NOT SECURE — tests only.
 PARAM_TEST_STAT = CryptoParams(
     name="test_stat",

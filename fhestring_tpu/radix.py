@@ -13,7 +13,7 @@ Conventions:
 - A "Bits" value is a Blocks holding 0/1 (no block axis).
 All ops are elementwise over the leading batch shape and lower to a small
 constant number of batched PBS calls — the batch axis carries every string
-position at once, which is what fills the MXU.
+position at once, which is what fills the device.
 """
 
 from __future__ import annotations

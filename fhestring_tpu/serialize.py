@@ -3,9 +3,9 @@
 The reference derives serde on ``MyClientKey``/``MyServerKey``/
 ``PublicParameters`` (reference src/client_key.rs:9, src/server_key/mod.rs:13,
 src/ciphertext/public_parameters.rs:4) but never writes them anywhere; for a
-TPU deployment, persistence actually matters: prod keygen is tens of seconds
-of CPU and the evaluation keys are ~100 MB that should be generated once and
-shipped to servers. Everything here is flat numpy ``.npz`` — no pickles, no
+served deployment, persistence actually matters: prod keygen is seconds to
+minutes of CPU and the evaluation keys are hundreds of MB that should be
+generated once and shipped to servers. Everything here is flat numpy ``.npz`` — no pickles, no
 Python objects on the wire.
 
 Formats (all little-endian numpy):
@@ -29,7 +29,9 @@ from .numpy_ref import core as ref
 from .params import CryptoParams
 from .shortint import Blocks
 
-FORMAT_VERSION = 1
+# 2: the packed server key holds only bsk_limbs, ksk_limbs and the optional
+# bsk_ntt; version-1 packed checkpoints carried kernel-specific key layouts.
+FORMAT_VERSION = 2
 
 
 # ---------------------------------------------------------------------------
@@ -91,33 +93,33 @@ def save_server_key(path: str, ck) -> None:
     )
 
 
-def load_server_key(path: str, with_ntt2: bool | None = None):
-    import jax
-
+def load_server_key(path: str):
+    """Load evaluation keys and pack them for this platform's bootstrap
+    path (crypto.pbs.bootstrap_path)."""
     from .crypto.keys import pack_server_keys
+    from .crypto.pbs import bootstrap_path
     from .server import ServerKey
 
     data = np.load(path, allow_pickle=False)
     assert str(data["kind"]) == "server_key", data["kind"]
     params = params_from_json(str(data["params"]))
     raw = ref.ServerKeys(params, data["bsk"], data["ksk"])
-    if with_ntt2 is None:
-        with_ntt2 = jax.default_backend() != "cpu"
-    return ServerKey(pack_server_keys(raw, with_ntt2=with_ntt2), params)
+    with_ntt = bootstrap_path(params).use_ntt
+    return ServerKey(pack_server_keys(raw, with_ntt=with_ntt), params)
 
 
 # ---------------------------------------------------------------------------
 # packed (device-format) server key: the cold-start killer
 # ---------------------------------------------------------------------------
 
-_PACKED_OPTIONAL = ("bsk_ntt", "bsk_ntt2", "bsk_ntt32")
+_PACKED_OPTIONAL = ("bsk_ntt",)
 
 
 def save_packed_server_key(path: str, server_key) -> None:
     """Persist the DEVICE-format evaluation keys (limb planes + the
-    NTT-domain bootstrap key).  Packing the NTT-domain key is the single
-    biggest server cold-start cost (minutes of host transforms at prod
-    params); a packed checkpoint makes startup a load + device upload.
+    NTT-domain bootstrap key when packed).  Packing the NTT-domain key is
+    the biggest server cold-start cost (host transforms over the whole
+    bootstrap key); a packed checkpoint makes startup a load + upload.
     Uncompressed on purpose: load speed is the point."""
     dk = server_key.backend.sc.keys
     arrs = dict(
@@ -147,6 +149,12 @@ def load_packed_server_key(path: str):
 
     data = np.load(path, allow_pickle=False)
     assert str(data["kind"]) == "packed_server_key", data["kind"]
+    version = int(data["version"])
+    if version != FORMAT_VERSION:
+        raise ValueError(
+            f"packed server key {path!r} has format version {version}, this "
+            f"build reads version {FORMAT_VERSION}; re-pack it from the "
+            "server key")
     params = params_from_json(str(data["params"]))
     opt = {name: jnp.asarray(data[name]) for name in _PACKED_OPTIONAL
            if name in data}

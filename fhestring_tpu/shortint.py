@@ -25,26 +25,35 @@ import numpy as np
 
 from . import torus
 from .crypto.keys import DeviceServerKeys, pack_luts
-from .crypto.pbs import pbs_batch
+from .crypto.pbs import bootstrap_path, pbs_batch
 from .params import CryptoParams
 from .torus import U64
 
 # Packing/noise budget: a fresh PBS output has variance 1 unit; tfhe-rs 2_2
 # parameters are dimensioned for the 4x+y pack (16 + 1 = 17 units).
 #
-# The budget is PER PARAMETER SET (params.CryptoParams.noise_budget): sets
-# with an on-device calibration run recorded in benchmarks/RESULTS.md carry
-# a measured budget (turbo: 192 units, derived in params.py from the 16384-
-# bootstrap calibration); uncalibrated sets keep the conservative round-1
-# default below.  Calibration history (benchmarks/noise_calibration.py):
-# - PARAM_TEST_STAT (prod-relative LWE noise, CI dims, 4096 bootstraps):
-#   worst designed pack measures 17.36 fresh-PBS units vs the theoretical
-#   17 — the unit bookkeeping matches measurement within 2%.
-# - PARAM_TURBO on device (16384 bootstraps): sigma_fresh = 2^-14.15
-#   matching the design analysis; pack 4x+y = 17.07 units; zero decode
-#   failures; budget-192 margin model in params.py.
+# The budget is PER PARAMETER SET (params.CryptoParams.noise_budget): turbo
+# carries a calibrated budget (192 units, derived in params.py from
+# benchmarks/noise_calibration.py); other sets keep the conservative default
+# below.  At PARAM_TEST_STAT (prod-relative LWE noise, CI dims, 4096
+# bootstraps) the worst designed pack measures 17.36 fresh-PBS units vs the
+# theoretical 17 — the unit bookkeeping matches measurement within 2%.
 MAX_NOISE_VAR = 34.0  # default for sets without a calibrated noise_budget
 MAX_DEGREE = 15
+
+# Widest PBS batch run at once.  Wider batches (e.g. whole split grids
+# compacted at once) run in chunks of this size: it bounds peak device
+# memory (the rotation holds the [B, k+1, N] u64 accumulator plus the
+# per-step external-product planes) and keeps the compiled shapes few.
+MAX_PBS_CHUNK = 4096
+
+
+def padded_width(n: int) -> int:
+    """Compiled batch width for a chunk of n <= MAX_PBS_CHUNK items: the
+    next power of two, at least 8.  Powers of two keep the set of compiled
+    shapes small and the width a multiple of any power-of-two mesh, which
+    _shard_batch_hint relies on."""
+    return max(8, 1 << (n - 1).bit_length())
 
 
 def _shard_batch_hint(flat: U64) -> U64:
@@ -53,25 +62,20 @@ def _shard_batch_hint(flat: U64) -> U64:
     The engine's grids have odd sizes (e.g. (len+1)^2 split buffers), so
     after flattening GSPMD often cannot propagate the lane sharding and
     replicates the widest PBS batches — the dominant cost under a mesh.
-    The padded width is always a multiple of the mesh size (powers of two
-    on CPU, 128/1024-multiples on TPU), so an explicit constraint is always
-    legal; outside a mesh this is a no-op."""
-    import jax
+    The padded width is a power of two (padded_width), so under a
+    power-of-two mesh the constraint is legal; outside a mesh, or when the
+    width does not divide, this is a no-op."""
+    from .parallel import BATCH_AXIS
 
-    try:
-        mesh = jax.sharding.get_abstract_mesh()
-        from .parallel import BATCH_AXIS
-
-        if mesh is None or mesh.empty or BATCH_AXIS not in mesh.axis_names:
-            return flat
-        if flat.lo.shape[0] % mesh.shape[BATCH_AXIS]:
-            return flat
-        spec = jax.sharding.PartitionSpec(
-            BATCH_AXIS, *([None] * (flat.lo.ndim - 1)))
-        wsc = jax.lax.with_sharding_constraint
-        return U64(wsc(flat.lo, spec), wsc(flat.hi, spec))
-    except Exception:  # pre-mesh jax or non-GSPMD tracing: no hint
+    mesh = jax.sharding.get_abstract_mesh()
+    if mesh.empty or BATCH_AXIS not in mesh.axis_names:
         return flat
+    if flat.lo.shape[0] % mesh.shape[BATCH_AXIS]:
+        return flat
+    spec = jax.sharding.PartitionSpec(
+        BATCH_AXIS, *([None] * (flat.lo.ndim - 1)))
+    wsc = jax.lax.with_sharding_constraint
+    return U64(wsc(flat.lo, spec), wsc(flat.hi, spec))
 
 
 @dataclasses.dataclass
@@ -104,6 +108,7 @@ class ShortintContext:
     def __init__(self, keys: DeviceServerKeys):
         self.keys = keys
         self.params: CryptoParams = keys.params
+        self.path = bootstrap_path(keys.params)
         # Per-set linear-noise budget (fresh-PBS variance units); see
         # params.CryptoParams.noise_budget for the derivation.
         self.max_noise_var: float = getattr(
@@ -181,36 +186,20 @@ class ShortintContext:
         return self._lut_cache[key]
 
     def _pbs_padded(self, flat: torus.U64, idx: jnp.ndarray, bank: torus.U64):
-        """Run pbs_batch with the batch padded to a bounded set of widths.
-
-        On TPU the fused blind-rotation kernel pays a long one-time Mosaic
-        compile per distinct batch shape, so we bucket to exactly {128,
-        multiples of 1024}: every string method then shares at most two
-        compiled PBS programs. On CPU (einsum path, cheap compiles, compute
-        scales with the pad) we keep the tighter power-of-two padding."""
+        """Run pbs_batch in chunks of at most MAX_PBS_CHUNK items, each
+        padded to padded_width, on the platform's bootstrap path."""
         from . import metrics
 
         n = flat.lo.shape[0]
-        on_cpu = jax.default_backend() == "cpu"
-        # Very wide batches (e.g. whole split grids compacted at once) are
-        # processed in fixed-size chunks: bounds peak accumulator memory
-        # (acc is [B, k+1, N] u64 inside the rotation) and keeps the set of
-        # compiled shapes closed under growth.
-        max_chunk = 4096 if on_cpu else 8192
-        if n > max_chunk:
+        if n > MAX_PBS_CHUNK:
             outs = []
-            for s in range(0, n, max_chunk):
-                e = min(s + max_chunk, n)
+            for s in range(0, n, MAX_PBS_CHUNK):
+                e = min(s + MAX_PBS_CHUNK, n)
                 outs.append(self._pbs_padded(
                     U64(flat.lo[s:e], flat.hi[s:e]), idx[s:e], bank))
             return U64(jnp.concatenate([o.lo for o in outs]),
                        jnp.concatenate([o.hi for o in outs]))
-        if on_cpu:
-            padded = max(8, 1 << (n - 1).bit_length()) if n > 1 else 8
-        elif n <= 128:
-            padded = 128
-        else:
-            padded = -(-n // 1024) * 1024
+        padded = padded_width(n)
         metrics.record_pbs(n, padded)
         if padded != n:
             pad = padded - n
@@ -219,26 +208,7 @@ class ShortintContext:
                        jnp.concatenate([flat.hi, zlo]))
             idx = jnp.concatenate([idx, jnp.zeros(pad, jnp.int32)])
         flat = _shard_batch_hint(flat)
-        # On TPU, take the fused whole-blind-rotation NTT kernel when the
-        # NTT-domain key is packed, else the matmul kernel; on CPU keep the
-        # einsum path (native XLA, no interpret overhead).
-        # - 32-bit torus (turbo): the EXACT fused32 kernel (single u32
-        #   plane, 1-limb digits, 2-prime CRT). Its approx mode is NOT used:
-        #   the dropped plane sits at 2^-32 relative scale, too coarse.
-        # - 64-bit torus: rounded + plane-truncated fused kernel (715 vs
-        #   597 exact-fused vs 428 Hankel-matmul PBS/s at B=1024, prod
-        #   params, v5e — benchmarks/RESULTS.md; both modes are plaintext-
-        #   equivalent budgeted-noise approximations, calibrated on-device
-        #   by benchmarks/noise_calibration.py).
-        on_tpu = jax.default_backend() != "cpu"
-        turbo = self.params.torus_bits == 32
-        ntt_key = self.keys.bsk_ntt32 if turbo else self.keys.bsk_ntt2
-        use_fused = on_tpu and ntt_key is not None
-        out = pbs_batch(flat, idx, bank, self.keys,
-                        use_pallas=on_tpu and not use_fused and not turbo,
-                        use_fused=use_fused,
-                        rounded=use_fused and not turbo,
-                        approx=use_fused and not turbo)
+        out = pbs_batch(flat, idx, bank, self.keys, use_ntt=self.path.use_ntt)
         if padded != n:
             out = U64(out.lo[:n], out.hi[:n])
         return out

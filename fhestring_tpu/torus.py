@@ -1,8 +1,9 @@
-"""64-bit torus arithmetic emulated on 2x uint32 limbs (TPU-native).
+"""64-bit torus arithmetic emulated on 2x uint32 limbs.
 
-TPUs have no native 64-bit integer path, so torus elements mod 2**64 are
-carried as (lo, hi) uint32 pairs.  All helpers are shape-polymorphic and
-jit-friendly; they are used identically on CPU (tests) and TPU (production).
+JAX runs 32-bit integers by default (64-bit types need jax_enable_x64), so
+torus elements mod 2**64 are carried as (lo, hi) uint32 pairs.  All helpers
+are shape-polymorphic and jit-friendly; they run identically on the CPU
+(tests) and the GPU (production).
 
 This module replaces the role of tfhe-rs's u64 torus arithmetic
 (reference dependency; see SURVEY.md section 2.3).

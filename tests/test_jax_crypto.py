@@ -7,17 +7,28 @@ equality, not just plaintext-level.
 import numpy as np
 import pytest
 
-from fhestring_tpu import PARAM_TEST_NOISY, PARAM_TEST_ZERO_NOISE, torus
 from fhestring_tpu import numpy_ref as ref
+from fhestring_tpu import params as P
+from fhestring_tpu import torus
 from fhestring_tpu.crypto import keys as dkeys
 from fhestring_tpu.crypto import pbs as dpbs
 
 U64NP = np.uint64
 
+# Every small parameter set: the 64-bit 1-level sets and the 32-bit 3-level
+# sets that share turbo's gadget decomposition.
+SMALL_SETS = {
+    "zero": P.PARAM_TEST_ZERO_NOISE,
+    "noisy": P.PARAM_TEST_NOISY,
+    "stat": P.PARAM_TEST_STAT,
+    "zero32": P.PARAM_TEST32_ZERO_NOISE,
+    "stat32": P.PARAM_TEST32_STAT,
+}
 
-@pytest.fixture(scope="module", params=["zero", "noisy"])
+
+@pytest.fixture(scope="module", params=sorted(SMALL_SETS))
 def ctx(request):
-    p = PARAM_TEST_ZERO_NOISE if request.param == "zero" else PARAM_TEST_NOISY
+    p = SMALL_SETS[request.param]
     rng = np.random.default_rng(42)
     sk, srv = ref.keygen(p, rng)
     dev = dkeys.pack_server_keys(srv)
@@ -113,21 +124,6 @@ def test_full_pbs_batch_matches_numpy(ctx):
         assert ref.shortint_decrypt(sk, got[i]) == table[m]
 
 
-def test_full_pbs_batch_pallas_path_matches(ctx):
-    """use_pallas=True (interpreted Mosaic kernel + shear rotations on CPU)
-    must agree with the einsum path bit-exactly."""
-    p, rng, sk, srv, dev = ctx
-    table = [(7 * m + 3) % 16 for m in range(16)]
-    bank = dkeys.pack_luts([table], p)
-    msgs = [0, 4, 9, 15, 2, 7, 12, 1]
-    cts = np.stack([ref.shortint_encrypt(sk, m, rng) for m in msgs])
-    idx = np.zeros(len(msgs), np.int32)
-    want = torus.to_numpy(dpbs.pbs_batch(torus.from_numpy(cts), idx, bank, dev))
-    got = torus.to_numpy(dpbs.pbs_batch(torus.from_numpy(cts), idx, bank, dev,
-                                        use_pallas=True))
-    np.testing.assert_array_equal(got, want)
-
-
 def test_full_pbs_batch_ntt_path_matches(ctx):
     """use_ntt=True (CRT-NTT external product) must agree bit-exactly."""
     p, rng, sk, srv, dev = ctx
@@ -142,22 +138,4 @@ def test_full_pbs_batch_ntt_path_matches(ctx):
     want = torus.to_numpy(dpbs.pbs_batch(torus.from_numpy(cts), idx, bank, dev))
     got = torus.to_numpy(dpbs.pbs_batch(torus.from_numpy(cts), idx, bank,
                                         dev_ntt, use_ntt=True))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_full_pbs_batch_ntt2_path_matches(ctx):
-    """use_ntt2=True (negacyclic CRT-NTT Pallas kernel, interpreted on CPU)
-    must agree bit-exactly with the einsum path."""
-    p, rng, sk, srv, dev = ctx
-    from fhestring_tpu.crypto import keys as dkeys2
-
-    dev_ntt2 = dkeys2.pack_server_keys(srv, with_ntt2=True)
-    table = [(5 * m + 7) % 16 for m in range(16)]
-    bank = dkeys2.pack_luts([table], p)
-    msgs = [0, 4, 9, 15, 2, 7, 12, 1]
-    cts = np.stack([ref.shortint_encrypt(sk, m, rng) for m in msgs])
-    idx = np.zeros(len(msgs), np.int32)
-    want = torus.to_numpy(dpbs.pbs_batch(torus.from_numpy(cts), idx, bank, dev))
-    got = torus.to_numpy(dpbs.pbs_batch(torus.from_numpy(cts), idx, bank,
-                                        dev_ntt2, use_ntt2=True))
     np.testing.assert_array_equal(got, want)

@@ -8,7 +8,7 @@ ZERO decode failures, plus that the measured fresh-PBS noise is sane
 (nonzero, and far inside the half-slot budget).
 
 The full >= 10^4-sample run at PRODUCTION parameters runs on the device via
-benchmarks/noise_calibration.py (results recorded in benchmarks/RESULTS.md);
+benchmarks/noise_calibration.py (results recorded in PERF.md);
 this CI mirror keeps the harness honest at a few thousand samples.
 """
 

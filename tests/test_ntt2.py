@@ -1,5 +1,5 @@
 """Negacyclic twist-folded CRT-NTT (crypto/ntt2.py): exactness vs the
-matmul-path oracle (crypto/kernels/ext_product.py reference semantics)."""
+Hankel-path oracle (numpy_ref.ext_product_planes_reference)."""
 
 import numpy as np
 import pytest
@@ -50,11 +50,9 @@ def _digit_limbs_np(digits, num_la=3):
 
 def _matmul_oracle(dl, key_u64, n):
     """u64 ext product via the existing matmul-path reference."""
-    import jax.numpy as jnp
-
-    from fhestring_tpu.crypto.kernels.ext_product import (
-        ext_product_planes_reference, recombine_planes_numpy)
     from fhestring_tpu.crypto.keys import balanced_limbs_u64, negacyclic_double
+    from fhestring_tpu.numpy_ref.core import (
+        ext_product_planes_reference, recombine_planes_numpy)
 
     doubled = negacyclic_double(key_u64)                # [R, kp1, 2N]
     limbs = np.moveaxis(balanced_limbs_u64(doubled), -1, -2)  # [R,kp1,8,2N]
@@ -62,8 +60,7 @@ def _matmul_oracle(dl, key_u64, n):
     drev = np.flip(dl, axis=2)                          # reverse c per i
     drev = np.transpose(drev, (3, 0, 1, 2)).reshape(dl.shape[-1],
                                                     dl.shape[0], -1)
-    planes = ext_product_planes_reference(jnp.asarray(drev), jnp.asarray(p4),
-                                          n_poly=n)
+    planes = ext_product_planes_reference(drev, p4, n_poly=n)
     return recombine_planes_numpy(np.asarray(planes))
 
 

@@ -56,24 +56,44 @@ def test_ciphertext_roundtrip(tmp_path):
 
 
 def test_packed_server_key_roundtrip(tmp_path):
-    """Round-2 verdict item (cold start): the DEVICE-format key checkpoint
-    must restore a working server without re-packing, including the
-    NTT-domain bootstrap key, and get_server_key(cache_path=) must hit it."""
-    from fhestring_tpu import serialize
-    from fhestring_tpu.client import ClientKey
+    """The DEVICE-format key checkpoint restores a working server without
+    re-packing, including the optional NTT-domain bootstrap key, and
+    get_server_key(cache_path=) loads it instead of packing again."""
+    from fhestring_tpu.crypto.keys import pack_server_keys
     from fhestring_tpu.params import PARAM_TEST32_ZERO_NOISE
+    from fhestring_tpu.server import ServerKey
 
     ck = ClientKey(PARAM_TEST32_ZERO_NOISE, seed=3)
     path = str(tmp_path / "packed.npz")
-    srv = ck.get_server_key(with_ntt2=True, cache_path=path)
-    assert srv.backend.sc.keys.bsk_ntt32 is not None
+    srv = ServerKey(pack_server_keys(ck._server_raw, with_ntt=True),
+                    ck.params)
+    serialize.save_packed_server_key(path, srv)
 
     loaded = serialize.load_packed_server_key(path)
     assert loaded.params == ck.params
-    assert loaded.backend.sc.keys.bsk_ntt32 is not None
+    np.testing.assert_array_equal(np.asarray(loaded.backend.sc.keys.bsk_ntt),
+                                  np.asarray(srv.backend.sc.keys.bsk_ntt))
     s = ck.encrypt("Hi th", 1)
     assert ck.decrypt(loaded.to_upper(s)) == "HI TH"
 
-    # cache hit path: same file, no re-pack
+    # cache hit: the checkpoint's NTT-domain key comes back although the
+    # CPU path would not have packed one
     srv2 = ck.get_server_key(cache_path=path)
+    assert srv2.backend.sc.keys.bsk_ntt is not None
     assert ck.decrypt_char(srv2.contains_clear(s, "th")) == 1
+
+
+def test_packed_server_key_old_version_refused(tmp_path):
+    """A packed checkpoint of an older format version is refused by name,
+    never loaded with a key layout this build does not read."""
+    import pytest
+
+    path = str(tmp_path / "old.npz")
+    with open(path, "wb") as f:
+        np.savez(f, version=1, kind="packed_server_key",
+                 params=serialize.params_to_json(PARAM_TEST_ZERO_NOISE),
+                 bsk_limbs=np.zeros(1, np.int8),
+                 ksk_limbs=np.zeros(1, np.int8),
+                 bsk_ntt32=np.zeros(1, np.int16))
+    with pytest.raises(ValueError, match="format version 1"):
+        serialize.load_packed_server_key(path)
